@@ -1,0 +1,583 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+1. Prints the card (``nvidia-smi`` name and power limit, torch's device
+   name and count) and turns TF32 off, so the plain versions' matmuls
+   run in full f32.
+2. Builds the hand-written kernels from ``src/repro_torch/csrc`` with
+   ``nvcc`` into ``build/`` and prints the build time and ptxas report.
+3. Holds each kernel against its plain PyTorch version on the card at
+   the main path's shapes (f32: S=12,495 slots x W=367, q8: S=3,133 x
+   W=1,464; batches of 64 real packets padded to 128; exact and
+   approx): bitwise on integer payloads and power-of-two q8 scales,
+   rtol 1e-5 / atol 1e-6 on Gaussian payloads, where the sum order
+   differs.  Times kernel, plain version and ``index_add_``: device time
+   per call (``torch.profiler``) and back-to-back call time (CUDA
+   events), and prints the least time the card could take (the bound).
+4. Drives the main path at the paper model's width (K=10 clients,
+   P=4,585,546 parameters, 5 workers, ring capacity 64, 1% loss, 2%
+   duplicates, shuffled): ``run_engine_round`` eager and compiled, f32
+   and q8, exact and approx, then ``run_compiled_rounds`` over 3
+   chained rounds.  Checks eager == compiled bitwise (integer
+   payloads), the stats' conservation, that the launch counters rose by
+   the number of drained batches, that the compiled round equals the
+   same schedule folded by the plain versions, and that every output is
+   finite.  Prints round time, packets/s and peak device memory.
+5. Where a round's time goes: ``run_engine_round`` under the profiler;
+   the compiled round's host demux and enqueue from the port's named
+   spans, and the device's busy time in compiled and eager rounds.
+6. Prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
+   line and, last, the ``{"ok": true, ...}`` line.  Any failed check
+   raises before them.
+
+Exits non-zero without a CUDA device, and outside a checkout of the
+repository.  Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published peaks (NVIDIA data sheet; at the 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+K_CLIENTS = 10
+N_WORKERS = 5
+RING_CAPACITY = 64
+LOSS, DUP = 0.01, 0.02
+SEED = 0
+
+
+def device_info() -> dict:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    return {"nvidia_smi": smi[0], "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
+
+
+# ---------------------------------------------------------------------------
+# Kernel vs plain version at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def make_batch(rng, dev, n_slots, width, q8, integer, n_real=64, n=128):
+    """One drained batch as the main path gives it: ``n_real`` packets
+    (a few slots hit twice, one with weight 0) padded to ``n`` with
+    inert rows, plus a live accumulator."""
+    slots = rng.choice(n_slots, n_real, replace=False)
+    slots[1::9] = slots[0::9][:len(slots[1::9])]     # same-slot collisions
+    idx = np.full(n, -1, np.int32)
+    idx[:n_real] = slots
+    w = np.zeros(n, np.float32)
+    w[:n_real] = rng.integers(1, 4, n_real)
+    w[5] = 0.0                                       # inert arrival
+    if q8:
+        pk = np.zeros((n, width), np.int8)
+        pk[:n_real] = rng.integers(-127, 128, (n_real, width))
+        sc = np.zeros(n, np.float32)
+        sc[:n_real] = (2.0 ** rng.integers(-6, 0, n_real) if integer
+                       else rng.uniform(1e-3, 1e-1, n_real))
+    else:
+        pk = np.zeros((n, width), np.float32)
+        pk[:n_real] = (rng.integers(-8, 9, (n_real, width)) if integer
+                       else rng.normal(size=(n_real, width)))
+        sc = None
+    acc = (rng.integers(-8, 9, (n_slots, width)) if integer
+           else rng.normal(size=(n_slots, width))).astype(np.float32)
+    cnt = rng.integers(0, 3, n_slots).astype(np.float32)
+    t = lambda a: None if a is None else torch.from_numpy(a).to(dev)
+    return dict(packets=t(pk), scales=t(sc), idx=t(idx), weights=t(w),
+                acc=t(acc), counts=t(cnt))
+
+
+def kernel_call(b, exact, plain=False):
+    """Run the kernel (in place on b's acc/counts) or the plain version
+    (functional) on batch ``b``."""
+    from repro_torch.kernels import packet_scatter as ps
+    if b["scales"] is None:
+        fn = ps.packet_scatter_accum_plain if plain else ps.packet_scatter_accum
+        return fn(b["packets"], b["idx"], b["weights"], b["acc"],
+                  b["counts"], exact=exact)
+    fn = (ps.packet_scatter_accum_q8_plain if plain
+          else ps.packet_scatter_accum_q8)
+    return fn(b["packets"], b["scales"], b["idx"], b["weights"], b["acc"],
+              b["counts"], exact=exact)
+
+
+def compare_kernel(rng, dev, n_slots, width, q8, exact, integer) -> float:
+    """Kernel vs plain on one batch -> max |kernel - plain| (raises on a
+    mismatch: bitwise for integer data, rtol 1e-5 / atol 1e-6 else)."""
+    b = make_batch(rng, dev, n_slots, width, q8, integer)
+    a_ref, c_ref = kernel_call(b, exact, plain=True)
+    a, c = kernel_call({**b, "acc": b["acc"].clone(),
+                        "counts": b["counts"].clone()}, exact)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    for got, want, name in ((a, a_ref, "acc"), (c, c_ref, "counts")):
+        if integer:
+            torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                       msg=lambda m: f"{name}: {m}")
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
+                                       msg=lambda m: f"{name}: {m}")
+    return float((a - a_ref).abs().max())
+
+
+def time_ms(fn, iters=200, warmup=20) -> float:
+    """Mean time of ``fn()`` in ms over ``iters`` back-to-back calls,
+    CUDA events around the run, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def fold_bound(n_rows, n_acc_rows, width, q8) -> tuple:
+    """Least time (ms) the card could take to fold ``n_rows`` payload
+    rows into ``n_acc_rows`` accumulator rows, and what bounds it: each
+    payload row, its idx and weight (and q8 scale) read once, each hit
+    accumulator row and count read and written once; 2 operations
+    (multiply, add) per payload element, 3 on the q8 wire (decode)."""
+    elem = 1 if q8 else 4
+    nbytes = (n_rows * (width * elem + 8 + (4 if q8 else 0))
+              + n_acc_rows * (width + 1) * 4 * 2)
+    ops = n_rows * width * (3 if q8 else 2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def batch_bound(b) -> tuple:
+    """``fold_bound`` of one batch: its real rows and the slots they hit."""
+    real = b["idx"] >= 0
+    return fold_bound(int(real.sum()),
+                      int(torch.unique(b["idx"][real]).numel()),
+                      b["acc"].shape[1], b["scales"] is not None)
+
+
+def device_ms(fn, calls=50) -> float:
+    """Device time of one ``fn()`` in ms: the sum of the device times
+    ``torch.profiler`` records for ``calls`` calls, over ``calls``.
+    None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+    return total_us / 1e3 / calls if total_us > 0 else None
+
+
+def time_kernel(rng, dev, n_slots, width, q8) -> dict:
+    """Kernel (exact and approx), plain version and ``index_add_`` on one
+    main-path batch: device time per call (profiler) and the time of a
+    call back to back with the next (CUDA events; the host's launch
+    cost when it exceeds the device's)."""
+    b = make_batch(rng, dev, n_slots, width, q8, integer=False)
+    real = b["idx"] >= 0
+    ridx = b["idx"][real].long()
+    w = b["weights"][real][:, None]
+    rows = b["packets"][real].float()
+    if q8:
+        rows = rows * b["scales"][real][:, None]
+    src = (w * rows).contiguous()
+    acc = b["acc"]
+    fns = {
+        "": lambda: kernel_call(b, True),
+        "approx_": lambda: kernel_call(b, False),
+        "plain_": lambda: kernel_call(b, True, plain=True),
+        # the library yardstick, exact mode: one index_add_ of the
+        # weighted (decoded) rows, built outside the timed call
+        "library_": lambda: acc.index_add_(0, ridx, src),
+    }
+    out = {}
+    for key, fn in fns.items():
+        out[key + "call_ms"] = time_ms(fn)
+        out[key + "device_ms"] = device_ms(fn)
+        out[key + "ms"] = (out[key + "device_ms"]
+                           if out[key + "device_ms"] is not None
+                           else out[key + "call_ms"])
+    # one paper-width round's fold: 200 such rows through the
+    # schedule loop (pointers computed once), per row
+    R = 200
+    sched = [b["idx"].repeat(R, 1), b["weights"].repeat(R, 1),
+             b["packets"].repeat(R, 1, 1)]
+    ssc = None if b["scales"] is None else b["scales"].repeat(R, 1)
+    from repro_torch.kernels.packet_scatter import packet_scatter_accum_rounds
+    out["row_in_fold_ms"] = time_ms(
+        lambda: packet_scatter_accum_rounds(*sched, acc, b["counts"],
+                                            sched_scales=ssc),
+        iters=5, warmup=1) / R
+    out["bound_ms"], out["bound_by"] = batch_bound(b)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The main path at paper width
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Workload:
+    """One paper-width round's inputs, host side (numpy)."""
+    flats: np.ndarray        # (K, P) client state, integer-valued f32
+    prev: np.ndarray         # (P,) previous global
+    weights: np.ndarray      # (K,) FedAvg weights
+    down: np.ndarray         # (K, N) downlink arrival mask
+    pk: np.ndarray           # (K, N, W) wire payloads (f32 or int8)
+    scales: np.ndarray       # (K, N) q8 scales, or None
+
+
+def make_workload(rng, n_clients, n_params, q8) -> Workload:
+    from repro_torch.core.packets import (PAYLOAD_F32, PAYLOAD_Q8,
+                                          PacketizedShape)
+    W = PAYLOAD_Q8 if q8 else PAYLOAD_F32
+    N = PacketizedShape(n_params, W).n_packets
+    flats = rng.integers(-8, 9, (n_clients, n_params)).astype(np.float32)
+    prev = rng.integers(-8, 9, n_params).astype(np.float32)
+    weights = rng.integers(1, 4, n_clients).astype(np.float32)
+    down = (rng.random((n_clients, N)) >= 0.05).astype(np.float32)
+    if q8:
+        # power-of-two scales keep every sum exact: bitwise checks hold
+        pk = rng.integers(-127, 128, (n_clients, N, W)).astype(np.int8)
+        scales = (2.0 ** rng.integers(-6, 0, (n_clients, N))).astype(
+            np.float32)
+    else:
+        pk = np.zeros((n_clients, N * W), np.float32)
+        pk[:, :n_params] = flats
+        pk = pk.reshape(n_clients, N, W)
+        scales = None
+    return Workload(flats, prev, weights, down, pk, scales)
+
+
+def count_data(events) -> int:
+    from repro_torch.core.protocol import Kind
+    return sum(p.kind is Kind.DATA for p, _ in events)
+
+
+def check_round(res, events, wl: Workload, cfg) -> None:
+    """Conservation and finiteness of one round's result."""
+    s = res.stats
+    n_data = count_data(events)
+    buckets = (s.data_enqueued + s.duplicates_dropped + s.phase_dropped
+               + s.late_dropped + s.malformed_dropped)
+    assert buckets == n_data, (buckets, n_data)
+    up = res.up_mask.cpu().numpy()
+    assert s.data_enqueued == int(up.sum()), (s.data_enqueued, up.sum())
+    want = (up * wl.weights[:, None]).sum(axis=0)
+    np.testing.assert_array_equal(res.counts.cpu().numpy(), want)
+    for name in ("new_global", "new_client_flats"):
+        t = getattr(res, name)
+        assert t is not None and bool(torch.isfinite(t).all()), name
+    assert tuple(res.new_global.shape) == (cfg.n_params,)
+    assert tuple(res.new_client_flats.shape) == (cfg.n_clients,
+                                                 cfg.n_params)
+
+
+def assert_same(a, b, what) -> None:
+    for name in ("new_global", "counts", "up_mask", "new_client_flats"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert torch.equal(x, y), f"{what}: {name} differs"
+    assert a.stats == b.stats, (what, a.stats, b.stats)
+
+
+def plain_round(cfg, events, wl: Workload, dev):
+    """The compiled round's schedule folded by the plain versions on
+    ``dev`` (no kernel launch), then the port's END and TX."""
+    from repro_torch.core import engine_compiled as ec
+    from repro_torch.core.server import RoundResult, downlink, \
+        fallback_global
+    from repro_torch.core.pipeline import finalize_mean
+    from repro_torch.kernels import packet_scatter as ps
+    sched, stats, up = ec.demux_events(cfg, events, wl.weights)
+    acc = torch.zeros((cfg.n_slots, cfg.payload), device=dev)
+    cnt = torch.zeros((cfg.n_slots,), device=dev)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    for r in range(sched.n_batches):
+        if sched.scales is None:
+            acc, cnt = ps.packet_scatter_accum_plain(
+                t(sched.payloads[r]), t(sched.idx[r]), t(sched.weights[r]),
+                acc, cnt, exact=(cfg.mode == "exact"))
+        else:
+            acc, cnt = ps.packet_scatter_accum_q8_plain(
+                t(sched.payloads[r]), t(sched.scales[r]), t(sched.idx[r]),
+                t(sched.weights[r]), acc, cnt, exact=(cfg.mode == "exact"))
+    g = fallback_global(finalize_mean(acc, cnt), cnt, wl.prev, cfg.payload,
+                        cfg.n_params)
+    flats = downlink(g, wl.flats, wl.down, cfg.payload, cfg.n_params)
+    return RoundResult(g, cnt, t(up), flats, stats)
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main_path(dev, n_clients, n_params, log=print) -> dict:
+    """Drive the port's entry points at the given width; every check
+    raises on failure.  -> per-round rows and the launch counts."""
+    from repro_torch.core.server import (EngineConfig, make_uplink_stream,
+                                         run_engine_round)
+    from repro_torch.core.engine_compiled import run_compiled_rounds
+    from repro_torch.kernels import packet_scatter as ps
+    rng = np.random.default_rng(SEED)
+    rows = []
+    ps.packet_scatter_accum.launches = 0
+    ps.packet_scatter_accum_q8.launches = 0
+    for wire in ("f32", "q8"):
+        wl = make_workload(rng, n_clients, n_params, q8=(wire == "q8"))
+        events, _ = make_uplink_stream(rng, wl.pk, loss_rate=LOSS,
+                                       dup_rate=DUP, scales=wl.scales)
+        n_data = count_data(events)
+        for mode in ("exact", "approx"):
+            results = {}
+            for compiled in (False, True):
+                cfg = EngineConfig(n_clients=n_clients, n_params=n_params,
+                                   payload=wl.pk.shape[2],
+                                   n_workers=N_WORKERS,
+                                   ring_capacity=RING_CAPACITY, mode=mode,
+                                   compile=compiled)
+                counter = (ps.packet_scatter_accum_q8
+                           if wire == "q8" and compiled
+                           else ps.packet_scatter_accum)
+                before = counter.launches
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(dev)
+                sync(dev)
+                t0 = time.perf_counter()
+                res = run_engine_round(cfg, wl.flats, wl.prev, events,
+                                       down_mask=wl.down,
+                                       weights=wl.weights, device=dev)
+                sync(dev)
+                dt = time.perf_counter() - t0
+                launches = counter.launches - before
+                check_round(res, events, wl, cfg)
+                if dev.type == "cuda":
+                    assert launches == res.stats.batches_drained, (
+                        launches, res.stats.batches_drained)
+                results[compiled] = res
+                row = {"wire": wire, "mode": mode,
+                       "engine": "compiled" if compiled else "eager",
+                       "round_s": dt, "data_packets": n_data,
+                       "packets_per_s": n_data / dt,
+                       "batches": res.stats.batches_drained,
+                       "launches": launches,
+                       "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                                          if dev.type == "cuda" else None)}
+                rows.append(row)
+                log(json.dumps(row))
+            assert_same(results[False], results[True],
+                        f"eager vs compiled {wire} {mode}")
+            plain = plain_round(cfg, events, wl, dev)
+            assert_same(results[True], plain, f"plain vs compiled {wire} {mode}")
+    # three chained compiled rounds through the double-buffered driver
+    wl = make_workload(rng, n_clients, n_params, q8=False)
+    cfg = EngineConfig(n_clients=n_clients, n_params=n_params,
+                       payload=wl.pk.shape[2], n_workers=N_WORKERS,
+                       ring_capacity=RING_CAPACITY, compile=True)
+    streams = [make_uplink_stream(rng, wl.pk, loss_rate=LOSS,
+                                  dup_rate=DUP)[0] for _ in range(3)]
+    before = ps.packet_scatter_accum.launches
+    sync(dev)
+    t0 = time.perf_counter()
+    chained = run_compiled_rounds(
+        cfg, [(ev, wl.flats, wl.down) for ev in streams], wl.prev,
+        weights=wl.weights, device=dev)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    launches = ps.packet_scatter_accum.launches - before
+    prev = wl.prev
+    for ev, res in zip(streams, chained):
+        check_round(res, ev, dataclasses.replace(wl, prev=prev), cfg)
+        one = run_engine_round(cfg, wl.flats, prev, ev, down_mask=wl.down,
+                               weights=wl.weights, device=dev)
+        assert_same(res, one, "chained vs single compiled round")
+        prev = res.new_global
+    n_data = sum(count_data(ev) for ev in streams)
+    if dev.type == "cuda":
+        assert launches == sum(r.stats.batches_drained for r in chained)
+    row = {"wire": "f32", "mode": "exact", "engine": "compiled_rounds x3",
+           "round_s": dt / 3, "data_packets": n_data,
+           "packets_per_s": n_data / dt, "launches": launches}
+    rows.append(row)
+    log(json.dumps(row))
+    return {"rows": rows,
+            "launches": {"packet_scatter_accum":
+                         ps.packet_scatter_accum.launches,
+                         "packet_scatter_accum_q8":
+                         ps.packet_scatter_accum_q8.launches}}
+
+
+def round_breakdown(dev, n_clients, n_params, log=print) -> list:
+    """Where one paper-width round's time goes: ``run_engine_round``
+    under the profiler.  Compiled rounds split into host demux and
+    enqueue (H2D copies + launches) by the port's named spans; both
+    engines get the device's busy time, kernel and H2D shares."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.server import EngineConfig, make_uplink_stream, \
+        run_engine_round
+    rng = np.random.default_rng(SEED + 1)
+    rows = []
+    for wire in ("f32", "q8"):
+        wl = make_workload(rng, n_clients, n_params, q8=(wire == "q8"))
+        events, _ = make_uplink_stream(rng, wl.pk, loss_rate=LOSS,
+                                       dup_rate=DUP, scales=wl.scales)
+        for compiled in (True, False):
+            cfg = EngineConfig(n_clients=n_clients, n_params=n_params,
+                               payload=wl.pk.shape[2], n_workers=N_WORKERS,
+                               ring_capacity=RING_CAPACITY, compile=compiled)
+            # host spans only for the compiled round: the eager round's
+            # per-packet torch ops would each become a profiler event
+            acts = ([ProfilerActivity.CPU] if compiled or dev.type == "cpu"
+                    else [])
+            if dev.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            sync(dev)
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                res = run_engine_round(cfg, wl.flats, wl.prev, events,
+                                       down_mask=wl.down, weights=wl.weights,
+                                       device=dev)
+                t2 = time.perf_counter()
+                sync(dev)
+                t3 = time.perf_counter()
+            evs = prof.events()
+            # device work: kernels, copies, fills; not the device-side
+            # copies of the named host spans
+            on_dev = [e for e in evs if e.device_type != DeviceType.CPU
+                      and not getattr(e, "is_user_annotation", False)]
+            busy = sum(e.self_device_time_total for e in on_dev) / 1e6
+            kern = sum(e.self_device_time_total for e in on_dev
+                       if "scatter_accum_kernel" in e.key) / 1e6
+            h2d = sum(e.self_device_time_total for e in on_dev
+                      if "HtoD" in e.key) / 1e6
+            row = {"wire": wire, "engine": "compiled" if compiled else "eager",
+                   "round_s": t3 - t0, "wait_s": t3 - t2,
+                   "device_busy_s": busy, "kernel_s": kern, "h2d_s": h2d,
+                   "device_idle_share": 1 - busy / (t3 - t0)}
+            if compiled:
+                spans = {name: sum(e.cpu_time_total for e in evs
+                                   if e.key == name
+                                   and e.device_type == DeviceType.CPU) / 1e6
+                         for name in ("demux_events", "dispatch_round")}
+                bound_ms, _ = fold_bound(res.stats.data_enqueued,
+                                         int((res.counts > 0).sum()),
+                                         cfg.payload, wire == "q8")
+                row.update(demux_s=spans["demux_events"],
+                           enqueue_s=spans["dispatch_round"],
+                           fold_bound_s=bound_ms / 1e3)
+            rows.append(row)
+            log(json.dumps(row))
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print("chip_smoke: run from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, src)
+    from repro_torch.configs.paper_cnn import CONFIG, n_params
+    from repro_torch.core.packets import PAYLOAD_F32, PAYLOAD_Q8, \
+        PacketizedShape
+    from repro_torch.kernels import packet_scatter as ps
+
+    info = device_info()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"# device: {info['kind']} x{info['count']}; nvidia-smi: "
+          f"{info['nvidia_smi']}; torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+
+    built = ps.load_library()
+    print(f"# build: {built.path.name} in {built.build_seconds:.2f} s",
+          flush=True)
+    print(built.build_log.strip(), flush=True)
+
+    dev = torch.device("cuda")
+    P = n_params(CONFIG)
+    shapes = {"packet_scatter_accum":
+              (PacketizedShape(P, PAYLOAD_F32).n_packets, PAYLOAD_F32, False),
+              "packet_scatter_accum_q8":
+              (PacketizedShape(P, PAYLOAD_Q8).n_packets, PAYLOAD_Q8, True)}
+    rng = np.random.default_rng(SEED)
+    kernels = {}
+    for name, (S, W, q8) in shapes.items():
+        err = 0.0
+        for exact in (True, False):
+            for integer in (True, False):
+                e = compare_kernel(rng, dev, S, W, q8, exact, integer)
+                assert not integer or e == 0.0, (name, exact, e)
+                err = max(err, e)
+        timing = time_kernel(rng, dev, S, W, q8)
+        kernels[name] = {"S": S, "W": W, "max_abs_err": err, **timing}
+        print(f"# {name} S={S} W={W}: max_abs_err {err:.3g}; "
+              + json.dumps(timing), flush=True)
+
+    # the main path: counts at 0 just before, read just after
+    t0 = time.perf_counter()
+    path = main_path(dev, K_CLIENTS, P,
+                     log=lambda s: print("# round " + s, flush=True))
+    print(f"# main path: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, n in path["launches"].items():
+        assert n > 0, f"{name} was not launched on the main path"
+    round_breakdown(dev, K_CLIENTS, P,
+                    log=lambda s: print("# breakdown " + s, flush=True))
+
+    replaces = {"packet_scatter_accum": ("packet_scatter.py:173",
+                                         "packet_scatter_accum_pallas"),
+                "packet_scatter_accum_q8": ("packet_scatter.py:227",
+                                            "packet_scatter_accum_q8_pallas")}
+    line = []
+    for name, k in kernels.items():
+        where, fn = replaces[name]
+        line.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/packet_scatter.cu",
+            "replaces": f"src/repro/kernels/{where}",
+            "replaces_function": f"src/repro/kernels/packet_scatter.py::{fn}",
+            "launches": path["launches"][name],
+            "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"],
+            "call_ms": k["call_ms"], "approx_ms": k["approx_ms"],
+            "row_in_fold_ms": k["row_in_fold_ms"],
+            "kernel_us": k["ms"] * 1e3, "plain_us": k["plain_ms"] * 1e3,
+            "library_us": k["library_ms"] * 1e3,
+            "bound_us": k["bound_ms"] * 1e3,
+            "shape": {"S": k["S"], "W": k["W"], "batch": 128, "real": 64}})
+    print(info["nvidia_smi"])
+    print(json.dumps({"kernels": line}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": info["kind"], "count": info["count"]}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,40 @@
+"""Sequential oracles for the hand-written kernels (the allclose targets).
+
+Torch port of ``repro.kernels.ref``; only the scatter-accumulate oracle
+lies on the server round's path.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import host_array
+
+
+def packet_scatter_accum_ref(packets, idx, acc, counts, weights=None,
+                             mode: str = "exact"):
+    """Sequential oracle for the scatter-accumulate contract.
+
+    exact: every weighted arrival adds; approx: every writer reads the
+    call-entry snapshot and the last write to a slot wins, while counts
+    see every weighted arrival.  Indices outside ``[0, S)`` are inert.
+    Runs in numpy on the host; returns f32 CPU tensors (acc', counts').
+    """
+    if mode not in ("exact", "approx"):
+        raise ValueError(mode)
+    pk = host_array(packets, np.float32)
+    ix = host_array(idx)
+    out = host_array(acc, np.float32).copy()
+    cnt = host_array(counts, np.float32).copy()
+    w = (np.ones(len(ix), np.float32) if weights is None
+         else host_array(weights, np.float32))
+    snap = out.copy()
+    for i, s in enumerate(ix):
+        if s < 0 or s >= out.shape[0]:
+            continue
+        cnt[s] += w[i]
+        if mode == "exact":
+            out[s] += w[i] * pk[i]
+        elif w[i] > 0:
+            out[s] = snap[s] + w[i] * pk[i]
+    return torch.from_numpy(out), torch.from_numpy(cnt)
