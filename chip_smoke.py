@@ -5,18 +5,20 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit, torch's device
    name and count) and turns TF32 off, so the plain versions' matmuls
-   run in full f32.
-2. Builds the hand-written kernels from ``src/repro_torch/csrc`` with
-   ``nvcc`` into ``build/`` and prints the build time and ptxas report.
-3. Holds each kernel against its plain PyTorch version on the card at
-   the main path's shapes (f32: S=12,495 slots x W=367, q8: S=3,133 x
-   W=1,464; batches of 64 real packets padded to 128; exact and
-   approx): bitwise on integer payloads and power-of-two q8 scales,
-   rtol 1e-5 / atol 1e-6 on Gaussian payloads, where the sum order
-   differs.  Times kernel, plain version and ``index_add_``: device time
-   per call (``torch.profiler``) and back-to-back call time (CUDA
-   events), and prints the least time the card could take (the bound).
-4. Drives the main path at the paper model's width (K=10 clients,
+   and the CNN's convolutions run in full f32.
+2. Builds every kernel library of ``src/repro_torch/csrc`` with ``nvcc``
+   into ``build/``, one ``nvcc`` per source, all started together, and
+   prints each build's time and ptxas report.
+3. Holds the scatter-accumulate kernels against their plain PyTorch
+   versions on the card at the packet path's shapes (f32: S=12,495
+   slots x W=367, q8: S=3,133 x W=1,464; batches of 64 real packets
+   padded to 128; exact and approx): bitwise on integer payloads and
+   power-of-two q8 scales, rtol 1e-5 / atol 1e-6 on Gaussian payloads,
+   where the sum order differs.  Times kernel, plain version and
+   ``index_add_``: device time per call (``torch.profiler``) and
+   back-to-back call time (CUDA events), and prints the least time the
+   card could take (the bound).
+4. The packet path at the paper model's width (K=10 clients,
    P=4,585,546 parameters, 5 workers, ring capacity 64, 1% loss, 2%
    duplicates, shuffled): ``run_engine_round`` eager and compiled, f32
    and q8, exact and approx, then ``run_compiled_rounds`` over 3
@@ -25,10 +27,27 @@
    the number of drained batches, that the compiled round equals the
    same schedule folded by the plain versions, and that every output is
    finite.  Prints round time, packets/s and peak device memory.
-5. Where a round's time goes: ``run_engine_round`` under the profiler;
-   the compiled round's host demux and enqueue from the port's named
-   spans, and the device's busy time in compiled and eager rounds.
-6. Prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
+5. Where a packet-path round's time goes: ``run_engine_round`` under the
+   profiler; the compiled round's host demux and enqueue from the
+   port's named spans, and the device's busy time.
+6. Holds the FedAvg accumulation kernels (``fedavg_accum`` on f32 and
+   bf16 payloads, ``quantized_accum`` on int8; finalize on and off; the
+   ``into`` fold) against their plain versions at the training loop's
+   shapes (K=10, C=12,495, W=367), at the same tolerances, and times
+   them beside their plain versions, ``torch.einsum`` and the bound.
+7. The FedAvg training loop: ``run_fedavg`` trains the paper CNN at
+   full width (K=10, batch 64, one local epoch, synthetic data): exact
+   at 5,000 samples per client, int8 and approx (conflict rate 0.005,
+   4.68% downlink loss) at 1,000, 3 rounds each.  Checks finite losses,
+   a falling exact test loss, and one launch of ``fedavg_accum`` per
+   exact round and of ``quantized_accum`` per int8 round.  Prints each
+   round's local-training and aggregation seconds and peak device
+   memory.  Then one exact round at 1,000 samples per client under the
+   profiler (the device's busy time and idle share, the top kernels),
+   and one paper-width ``fused_round_step`` on integer flats through
+   the kernels equals the same step through the plain versions,
+   bitwise.
+8. Prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
    line and, last, the ``{"ok": true, ...}`` line.  Any failed check
    raises before them.
 
@@ -189,6 +208,20 @@ def device_ms(fn, calls=50) -> float:
     return total_us / 1e3 / calls if total_us > 0 else None
 
 
+def timed(fns: dict, iters=200, warmup=20, calls=50) -> dict:
+    """``key + call_ms`` (CUDA events, ``iters`` calls back to back),
+    ``key + device_ms`` (profiler, ``calls`` calls) and ``key + ms``
+    (device time, else call time) for each ``key: fn``."""
+    out = {}
+    for key, fn in fns.items():
+        out[key + "call_ms"] = time_ms(fn, iters=iters, warmup=warmup)
+        out[key + "device_ms"] = device_ms(fn, calls=calls)
+        out[key + "ms"] = (out[key + "device_ms"]
+                           if out[key + "device_ms"] is not None
+                           else out[key + "call_ms"])
+    return out
+
+
 def time_kernel(rng, dev, n_slots, width, q8) -> dict:
     """Kernel (exact and approx), plain version and ``index_add_`` on one
     main-path batch: device time per call (profiler) and the time of a
@@ -211,13 +244,7 @@ def time_kernel(rng, dev, n_slots, width, q8) -> dict:
         # weighted (decoded) rows, built outside the timed call
         "library_": lambda: acc.index_add_(0, ridx, src),
     }
-    out = {}
-    for key, fn in fns.items():
-        out[key + "call_ms"] = time_ms(fn)
-        out[key + "device_ms"] = device_ms(fn)
-        out[key + "ms"] = (out[key + "device_ms"]
-                           if out[key + "device_ms"] is not None
-                           else out[key + "call_ms"])
+    out = timed(fns)
     # one paper-width round's fold: 200 such rows through the
     # schedule loop (pointers computed once), per row
     R = 200
@@ -492,6 +519,296 @@ def round_breakdown(dev, n_clients, n_params, log=print) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# FedAvg accumulation kernels (#3, #4) at the training loop's shapes
+# ---------------------------------------------------------------------------
+
+def accum_inputs(rng, dev, K, C, W, kind, integer) -> dict:
+    """One server step's aggregation inputs: (K, C, W) payloads (f32,
+    bf16 or int8 with (K, C) scales) and a (K, C) weighted mask with 5%
+    uplink loss and n_k weights.  Integer payloads (q8: power-of-two
+    scales) keep every f32 sum exact."""
+    m = ((rng.random((K, C)) >= 0.05)
+         * rng.integers(1, 4, (K, 1))).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    if kind == "int8":
+        q = rng.integers(-127, 128, (K, C, W)).astype(np.int8)
+        s = ((2.0 ** rng.integers(-6, 0, (K, C))) if integer
+             else rng.random((K, C)) / 127).astype(np.float32)
+        return {"q": t(q), "scales": t(s), "wmask": t(m)}
+    x = (rng.integers(-8, 9, (K, C, W)) if integer
+         else rng.normal(size=(K, C, W))).astype(np.float32)
+    x = t(x)
+    if kind == "bf16":
+        x = x.to(torch.bfloat16)
+    return {"packets": x, "wmask": t(m)}
+
+
+def accum_call(inp, finalize=True, plain=False):
+    """The kernel wrapper (or its plain version) on ``inp``."""
+    from repro_torch.kernels import fedavg_accum as fa
+    from repro_torch.kernels import quantized_accum as qa
+    if "q" in inp:
+        fn = qa.quantized_accum_plain if plain else qa.quantized_accum
+        return fn(inp["q"], inp["scales"], inp["wmask"], finalize=finalize)
+    fn = fa.fedavg_accum_plain if plain else fa.fedavg_accum
+    return fn(inp["packets"], inp["wmask"], finalize=finalize)
+
+
+def assert_close(got, want, integer, what) -> float:
+    """Bitwise for integer data, rtol 1e-5 / atol 1e-6 else; -> max
+    |got - want|."""
+    tol = dict(rtol=0, atol=0) if integer else dict(rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{what}: {m}")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def compare_accum(rng, dev, K, C, W) -> dict:
+    """Each accumulation kernel against its plain version on the card:
+    f32, bf16 and int8 payloads, finalize on and off, and the ``into``
+    fold.  -> max abs error per kernel."""
+    from repro_torch.kernels import fedavg_accum as fa
+    err = {"fedavg_accum": 0.0, "quantized_accum": 0.0}
+    cases = [("fedavg_accum", kind, fin, integer)
+             for kind in ("f32", "bf16") for fin in (True, False)
+             for integer in (True, False)]
+    cases += [("quantized_accum", "int8", fin, integer)
+              for fin in (True, False) for integer in (True, False)]
+    for name, kind, fin, integer in cases:
+        inp = accum_inputs(rng, dev, K, C, W, kind, integer)
+        want = accum_call(inp, fin, plain=True)
+        got = accum_call(inp, fin)
+        sync(dev)
+        what = f"{name} {kind} finalize={fin} integer={integer}"
+        e = max(assert_close(g, w, integer, what)
+                for g, w in zip(got, want))
+        err[name] = max(err[name], e)
+    for integer in (True, False):
+        inp = accum_inputs(rng, dev, K, C, W, "f32", integer)
+        total = torch.from_numpy(rng.normal(size=(C, W)).astype(
+            np.float32)).to(dev)
+        if integer:
+            total = total.round()
+        counts = torch.ones(C, device=dev)
+        sums, cnts = fa.fedavg_accum_plain(inp["packets"], inp["wmask"],
+                                           finalize=False)
+        want = (total + sums, counts + cnts)
+        got = fa.fedavg_accum_into(total.clone(), counts.clone(),
+                                   inp["packets"], inp["wmask"])
+        sync(dev)
+        e = max(assert_close(g, w, integer, f"fedavg_accum_into "
+                             f"integer={integer}")
+                for g, w in zip(got, want))
+        err["fedavg_accum"] = max(err["fedavg_accum"], e)
+    return err
+
+
+def accum_bound(K, C, W, elem_bytes, scales, into=False) -> tuple:
+    """Least time (ms) for one accumulation and what bounds it: each
+    payload element read once, the (K, C) mask (and scales) read once,
+    the (C, W) output and (C,) counts written once (into: also read);
+    a multiply and an add per payload element, plus s*m per (k, c)."""
+    out = (C * W + C) * 4
+    nbytes = (K * C * W * elem_bytes + K * C * 4 * (2 if scales else 1)
+              + out * (2 if into else 1))
+    ops = 2 * K * C * W + (K * C if scales else 0) + C * W
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_accum(rng, dev, K, C, W) -> dict:
+    """Kernel, plain version and ``torch.einsum`` (the library call that
+    computes the same function; on rows dequantized outside the call
+    for int8) at the training loop's shapes, on Gaussian payloads."""
+    from repro_torch.kernels import fedavg_accum as fa
+    f32 = accum_inputs(rng, dev, K, C, W, "f32", integer=False)
+    bf16 = {**f32, "packets": f32["packets"].to(torch.bfloat16)}
+    i8 = accum_inputs(rng, dev, K, C, W, "int8", integer=False)
+    deq = (i8["q"].float() * i8["scales"][..., None]).contiguous()
+    total, counts = torch.zeros((C, W), device=dev), torch.zeros(C,
+                                                                  device=dev)
+    x, m = f32["packets"], f32["wmask"]
+    # fewer calls than the scatter kernels: each reads 46-183 MB
+    few = dict(iters=50, warmup=5, calls=20)
+    out = {"fedavg_accum": timed({
+        "": lambda: accum_call(f32),
+        "raw_": lambda: accum_call(f32, finalize=False),
+        "bf16_": lambda: accum_call(bf16),
+        "into_": lambda: fa.fedavg_accum_into(total, counts, x, m),
+        "plain_": lambda: accum_call(f32, plain=True),
+        "library_": lambda: torch.einsum("kcw,kc->cw", x, m),
+    }, **few), "quantized_accum": timed({
+        "": lambda: accum_call(i8),
+        "plain_": lambda: accum_call(i8, plain=True),
+        "library_": lambda: torch.einsum("kcw,kc->cw", deq, i8["wmask"]),
+    }, **few)}
+    fa_t, qa_t = out["fedavg_accum"], out["quantized_accum"]
+    fa_t["bound_ms"], fa_t["bound_by"] = accum_bound(K, C, W, 4, False)
+    fa_t["bf16_bound_ms"], _ = accum_bound(K, C, W, 2, False)
+    fa_t["into_bound_ms"], _ = accum_bound(K, C, W, 4, False, into=True)
+    qa_t["bound_ms"], qa_t["bound_by"] = accum_bound(K, C, W, 1, True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The FedAvg training loop at the paper CNN's full width
+# ---------------------------------------------------------------------------
+
+# (mode, samples per client, rounds, extra FedAvgConfig fields): exact at
+# the paper's 5,000 samples per client; int8 and approx (the quickstart's
+# conflict rate and downlink loss) on smaller shards
+FEDAVG_RUNS = [("exact", 5000, 3, {}),
+               ("int8", 1000, 3, {}),
+               ("approx", 1000, 3, {"conflict_rate": 0.005,
+                                    "downlink_loss": 0.0468})]
+FEDAVG_TEST = 1000
+# the quickstart's lr 0.05 is for 16x16 images; at 32x32 fc0 has 16,384
+# inputs and lr 0.05 diverged to NaN in the first round on the card
+FEDAVG_LR = 0.01
+
+
+def fedavg_setup():
+    """The paper CNN's model functions at full width, a synthetic test
+    set, and one iid K-client partition per shard size of
+    ``FEDAVG_RUNS``."""
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.core.fedavg import ModelFns
+    from repro_torch.data.federated import partition_iid
+    from repro_torch.data.synthetic import synthetic_image_classification
+    from repro_torch.models import cnn
+    fns = ModelFns(
+        init=lambda g: cnn.init_cnn(g, CONFIG),
+        loss=lambda p, b, g: cnn.cnn_loss(p, b, CONFIG, dropout_rng=g),
+        test_metrics=lambda p, d: {
+            "test_loss": cnn.cnn_loss(p, d, CONFIG, train=False),
+            "test_acc": cnn.cnn_accuracy(p, d, CONFIG)})
+    rng = np.random.default_rng(SEED)
+    test = synthetic_image_classification(rng, FEDAVG_TEST)
+    datasets = {n: partition_iid(synthetic_image_classification(
+        rng, n * K_CLIENTS), K_CLIENTS, seed=SEED)
+        for n in sorted({r[1] for r in FEDAVG_RUNS})}
+    return fns, test, datasets
+
+
+def fedavg_config(mode, rounds, extra):
+    from repro_torch.core.fedavg import FedAvgConfig
+    return FedAvgConfig(n_clients=K_CLIENTS, rounds=rounds, local_epochs=1,
+                        batch_size=64, lr=FEDAVG_LR, agg_mode=mode,
+                        seed=SEED, **extra)
+
+
+def fedavg_path(dev, fns, test, datasets, log=print) -> dict:
+    """``run_fedavg`` on the card: the paper CNN (4,585,546 parameters),
+    K=10 clients, batch 64, one local epoch, synthetic data.  Checks
+    finite losses, a falling exact test loss, and that each exact round
+    launched #3 once and each int8 round #4 once (approx aggregates with
+    tensor ops).  -> per-round rows and the launch counts."""
+    from repro_torch.core.fedavg import run_fedavg
+    from repro_torch.kernels import fedavg_accum as fa
+    from repro_torch.kernels import quantized_accum as qa
+    rows = []
+    counters = lambda: (fa.fedavg_accum.launches, qa.quantized_accum.launches)
+    fa.fedavg_accum.launches = qa.quantized_accum.launches = 0
+    for mode, per_client, rounds, extra in FEDAVG_RUNS:
+        cfg = fedavg_config(mode, rounds, extra)
+        last = [counters()]
+
+        def on_round(t, h):
+            now = counters()
+            rise = (now[0] - last[0][0], now[1] - last[0][1])
+            last[0] = now
+            want = {"exact": (1, 0), "int8": (0, 1), "approx": (0, 0)}[mode]
+            assert rise == want, (mode, t, rise, want)
+            row = {"mode": mode, "per_client": per_client, "round": t,
+                   "train_s": h["train_s"][-1], "agg_s": h["agg_s"][-1],
+                   "test_loss": h["test_loss"][-1],
+                   "test_acc": h["test_acc"][-1],
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                   "launches": {"fedavg_accum": rise[0],
+                                "quantized_accum": rise[1]}}
+            torch.cuda.reset_peak_memory_stats(dev)
+            rows.append(row)
+            log(json.dumps(row))
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        h = run_fedavg(fns, datasets[per_client], test, cfg, device=dev,
+                       on_round=on_round)
+        assert np.isfinite(h["test_loss"]).all(), (mode, h["test_loss"])
+        if mode == "exact":
+            assert h["test_loss"][-1] < h["test_loss"][0], h["test_loss"]
+    launches = counters()
+    return {"rows": rows, "launches": {"fedavg_accum": launches[0],
+                                       "quantized_accum": launches[1]}}
+
+
+def fedavg_breakdown(dev, fns, test, data, log=print) -> dict:
+    """Where one FedAvg round's device time goes: one exact round on
+    ``data`` under the profiler (device activity only).  -> the round's
+    wall time, the device's busy time and idle share, the accumulation
+    kernel's time, and the five kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.fedavg import run_fedavg
+    cfg = fedavg_config("exact", 1, {})
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        h = run_fedavg(fns, data, test, cfg, device=dev)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    per_kernel = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            per_kernel[e.key] = (per_kernel.get(e.key, 0.0)
+                                 + e.self_device_time_total / 1e6)
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
+    row = {"round_s": wall, "train_s": h["train_s"][0],
+           "agg_s": h["agg_s"][0], "device_busy_s": busy,
+           "device_idle_share": 1 - busy / wall,
+           "accum_kernel_s": sum(v for k, v in per_kernel.items()
+                                 if "accum_kernel" in k),
+           "top_kernels": [[k[:80], v] for k, v in top]}
+    log(json.dumps(row))
+    return row
+
+
+def round_step_parity(dev, n_params) -> None:
+    """One ``fused_round_step`` at paper width on integer-valued flats,
+    exact and int8: through the kernels on the card, and through their
+    plain versions (the same step on CPU tensors); bitwise."""
+    from repro_torch.core.aggregation import fused_round_step
+    from repro_torch.core.packets import PAYLOAD_F32, PacketizedShape
+    rng = np.random.default_rng(SEED + 2)
+    N = PacketizedShape(n_params, PAYLOAD_F32).n_packets
+    host = [rng.integers(-8, 9, (K_CLIENTS, n_params)).astype(np.float32),
+            (rng.random((K_CLIENTS, N)) >= 0.05).astype(np.float32),
+            (rng.random((K_CLIENTS, N)) >= 0.05).astype(np.float32),
+            rng.integers(-8, 9, n_params).astype(np.float32),
+            rng.integers(1, 4, K_CLIENTS).astype(np.float32)]
+    for mode in ("exact", "int8"):
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            f, up, down, prev, w = (torch.from_numpy(a).to(d) for a in host)
+            outs.append([t.cpu() for t in fused_round_step(
+                f, up, down, prev, PAYLOAD_F32, mode=mode, weights=w,
+                backend="kernel")])
+        for name, a, b in zip(("flats", "global", "counts"), *outs):
+            assert torch.equal(a, b), f"fused_round_step {mode}: {name}"
+
+
+def build_all() -> list:
+    """Build every kernel library of ``csrc/``, one ``nvcc`` each, all
+    started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import fedavg_accum as fa
+    from repro_torch.kernels import packet_scatter as ps
+    loaders = (ps.load_library, fa.load_library)
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        return list(pool.map(lambda load: load(), loaders))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -514,10 +831,12 @@ def main() -> int:
           f"{info['nvidia_smi']}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    built = ps.load_library()
-    print(f"# build: {built.path.name} in {built.build_seconds:.2f} s",
-          flush=True)
-    print(built.build_log.strip(), flush=True)
+    t0 = time.perf_counter()
+    for built in build_all():
+        print(f"# build: {built.path.name} in {built.build_seconds:.2f} s",
+              flush=True)
+        print(built.build_log.strip(), flush=True)
+    print(f"# builds: {time.perf_counter() - t0:.2f} s wall", flush=True)
 
     dev = torch.device("cuda")
     P = n_params(CONFIG)
@@ -535,7 +854,8 @@ def main() -> int:
                 assert not integer or e == 0.0, (name, exact, e)
                 err = max(err, e)
         timing = time_kernel(rng, dev, S, W, q8)
-        kernels[name] = {"S": S, "W": W, "max_abs_err": err, **timing}
+        kernels[name] = {"S": S, "W": W, "batch": 128, "real": 64,
+                         "max_abs_err": err, **timing}
         print(f"# {name} S={S} W={W}: max_abs_err {err:.3g}; "
               + json.dumps(timing), flush=True)
 
@@ -549,29 +869,62 @@ def main() -> int:
     round_breakdown(dev, K_CLIENTS, P,
                     log=lambda s: print("# breakdown " + s, flush=True))
 
-    replaces = {"packet_scatter_accum": ("packet_scatter.py:173",
-                                         "packet_scatter_accum_pallas"),
-                "packet_scatter_accum_q8": ("packet_scatter.py:227",
-                                            "packet_scatter_accum_q8_pallas")}
+    # the FedAvg accumulation kernels at the training loop's shapes
+    C = PacketizedShape(P, PAYLOAD_F32).n_packets
+    accum_err = compare_accum(rng, dev, K_CLIENTS, C, PAYLOAD_F32)
+    accum = time_accum(rng, dev, K_CLIENTS, C, PAYLOAD_F32)
+    for name, timing in accum.items():
+        kernels[name] = {"K": K_CLIENTS, "C": C, "W": PAYLOAD_F32,
+                         "max_abs_err": accum_err[name], **timing}
+        print(f"# {name} K={K_CLIENTS} C={C} W={PAYLOAD_F32}: max_abs_err "
+              f"{accum_err[name]:.3g}; " + json.dumps(timing), flush=True)
+
+    # the training loop: counts at 0 just before, read just after
+    fns, test, datasets = fedavg_setup()
+    t0 = time.perf_counter()
+    fed = fedavg_path(dev, fns, test, datasets,
+                      log=lambda s: print("# fedavg " + s, flush=True))
+    print(f"# fedavg path: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, n in fed["launches"].items():
+        assert n > 0, f"{name} was not launched on the training loop"
+    path["launches"].update(fed["launches"])
+    fedavg_breakdown(dev, fns, test, datasets[min(datasets)],
+                     log=lambda s: print("# fedavg breakdown " + s,
+                                         flush=True))
+    round_step_parity(dev, P)
+    print("# fused_round_step: kernels == plain versions, bitwise",
+          flush=True)
+
+    replaces = {
+        "packet_scatter_accum": ("packet_scatter.cu", "packet_scatter.py:173",
+                                 "packet_scatter_accum_pallas"),
+        "packet_scatter_accum_q8": ("packet_scatter.cu",
+                                    "packet_scatter.py:227",
+                                    "packet_scatter_accum_q8_pallas"),
+        "fedavg_accum": ("fedavg_accum.cu", "fedavg_accum.py:59",
+                         "fedavg_accum_pallas"),
+        "quantized_accum": ("fedavg_accum.cu", "quantized_accum.py:48",
+                            "quantized_accum_pallas")}
     line = []
     for name, k in kernels.items():
-        where, fn = replaces[name]
+        source, where, fn = replaces[name]
+        extra = {key: v for key, v in k.items()
+                 if key not in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}
         line.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/packet_scatter.cu",
+            "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/{where}",
-            "replaces_function": f"src/repro/kernels/packet_scatter.py::{fn}",
+            "replaces_function":
+                f"src/repro/kernels/{where.split(':')[0]}::{fn}",
             "launches": path["launches"][name],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
-            "call_ms": k["call_ms"], "approx_ms": k["approx_ms"],
-            "row_in_fold_ms": k["row_in_fold_ms"],
             "kernel_us": k["ms"] * 1e3, "plain_us": k["plain_ms"] * 1e3,
             "library_us": k["library_ms"] * 1e3,
-            "bound_us": k["bound_ms"] * 1e3,
-            "shape": {"S": k["S"], "W": k["W"], "batch": 128, "real": 64}})
+            "bound_us": k["bound_ms"] * 1e3, **extra})
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

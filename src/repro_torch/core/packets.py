@@ -83,7 +83,11 @@ def quantize_payload(packets: torch.Tensor
     packet; the scale travels in the packet header.
     """
     absmax = packets.abs().amax(dim=-1)
-    return _quantize(packets, torch.clamp_min(absmax, 1e-12) / Q8_LEVELS)
+    # a tensor divisor on the packets' device: PyTorch turns a division
+    # of a CUDA tensor by a host scalar into a multiplication by its
+    # reciprocal, which rounds otherwise than the CPU's division
+    levels = torch.tensor(float(Q8_LEVELS), device=packets.device)
+    return _quantize(packets, torch.clamp_min(absmax, 1e-12) / levels)
 
 
 def dequantize_payload(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -174,15 +178,21 @@ def _leaves(params):
         yield params
 
 
+def _f32_leaf(leaf) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to(torch.float32).reshape(-1)
+    return torch.tensor(np.asarray(leaf, np.float32)).reshape(-1)
+
+
 def flatten_params(params) -> torch.Tensor:
-    """Nested dict of arrays -> one (P,) f32 CPU tensor.
+    """Nested dict of arrays or tensors -> one (P,) f32 tensor (on the
+    leaves' device; numpy leaves give a CPU tensor).
 
     The same vector ``repro.core.packets.flatten_pytree`` gives for the
     same dict: JAX flattens dicts in sorted-key order (``conv0`` ...
     ``fc1``; ``b`` before ``w``).
     """
-    return torch.cat([torch.tensor(np.asarray(leaf, np.float32)).reshape(-1)
-                      for leaf in _leaves(params)])
+    return torch.cat([_f32_leaf(leaf) for leaf in _leaves(params)])
 
 
 def unflatten_params(flat: torch.Tensor, like):
@@ -211,6 +221,35 @@ def state_from_reference(prev_global, client_flats, weights, device
     client_flats (K, P), weights (K,)) as f32 tensors on ``device``."""
     return tuple(torch.tensor(np.asarray(a, np.float32), device=device)
                  for a in (prev_global, client_flats, weights))
+
+
+# ---------------------------------------------------------------------------
+# Loss / arrival models
+# ---------------------------------------------------------------------------
+
+def loss_mask(generator: torch.Generator, n_clients: int, n_packets: int,
+              loss_rate: float) -> torch.Tensor:
+    """(K, N) f32 mask on the generator's device: 1 where the packet
+    arrived (independent Bernoulli loss).  The reference draws with
+    ``jax.random``, so the two packages draw different masks from one
+    seed; parity tests pass the mask in."""
+    dev = generator.device
+    if loss_rate <= 0.0:
+        return torch.ones((n_clients, n_packets), dtype=torch.float32,
+                          device=dev)
+    u = torch.rand((n_clients, n_packets), generator=generator, device=dev)
+    return (u < 1.0 - loss_rate).to(torch.float32)
+
+
+def straggler_mask(generator: torch.Generator, n_clients: int,
+                   dropout_rate: float) -> torch.Tensor:
+    """(K,) f32 on the generator's device: 0 for clients that miss the
+    round deadline entirely."""
+    dev = generator.device
+    if dropout_rate <= 0.0:
+        return torch.ones((n_clients,), dtype=torch.float32, device=dev)
+    u = torch.rand((n_clients,), generator=generator, device=dev)
+    return (u < 1.0 - dropout_rate).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------

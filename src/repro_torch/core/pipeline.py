@@ -1,38 +1,38 @@
-"""Streaming aggregation state of the packet-path server (§3.2.2).
+"""Streaming aggregation state of the FedAvg server (§3.2.2).
 
 ``StreamingAggregator`` keeps the running ``(total, counts)`` pair of a
-round on the device: each drained ring batch of out-of-order packets is
-scatter-accumulated into it (``scatter_add``), and END divides the sum
-by the counts (``finalize``) — the paper's "reception and addition in
-parallel until END" semantics.
+round on the device, the paper's "reception and addition in parallel
+until END" semantics:
+
+- ``add`` folds one client upload (N, W) with its arrival mask, or a
+  client batch (B, N, W), into the state;
+- ``add_batch`` folds a client batch through the FedAvg accumulation
+  kernel (``kernels/ops.py::fedavg_accum_into``, raw sums), in place;
+- ``scatter_add`` folds a drained ring batch of *out-of-order* packets
+  through the scatter-accumulate kernel (the packet-path server engine);
+- ``finalize`` is the END divide of the sum by the counts.
 
 Torch port of ``repro.core.pipeline``.  The reference donates
-``(total, counts)`` to every fold; here the fold updates them in place.
-The client-batch folds (``add``/``add_batch``) belong to the FedAvg
-training loop and are not ported yet (ROADMAP.md).
+``(total, counts)`` to every fold; here the folds update them in place.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Iterable, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core.device import as_tensor, resolve_device
 from repro_torch.kernels import ops as _ops
 from repro_torch.kernels import ref as _ref
-
-
-def finalize_mean(total: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
-    """END divide: total / max(counts, 1e-12), 0 where nobody delivered."""
-    avg = total / torch.clamp_min(counts, 1e-12)[:, None]
-    return torch.where(counts[:, None] > 0, avg, 0.0)
+from repro_torch.kernels.fedavg_accum import finalize_mean
 
 
 class StreamingAggregator:
     """Count-normalized streaming FedAvg server state on ``device``.
 
-    ``use_kernel=False`` selects the sequential host oracle
-    (``kernels.ref``), which exists only on the CPU.
+    ``use_kernel=False`` selects the plain folds: an einsum for client
+    batches and the sequential host oracle (``kernels.ref``) for ring
+    batches, which exists only on the CPU.
     """
 
     def __init__(self, n_packets: int, payload_width: int, *,
@@ -47,6 +47,38 @@ class StreamingAggregator:
                                   device=self.device)
         self.use_kernel = use_kernel
         self._finalized: Optional[torch.Tensor] = None
+
+    def add(self, packets, mask, weight: Union[float, object] = 1.0
+            ) -> None:
+        """Fold one upload (N, W) or a batch (B, N, W) into the state.
+
+        ``weight`` is the FedAvg n_k weight: a scalar for a single
+        upload, a scalar or a (B,) vector for a batch.
+        """
+        assert self._finalized is None, "aggregator already finalized"
+        packets = as_tensor(packets, self.device)
+        if packets.dim() == 3:
+            self.add_batch(packets, mask, weight)
+            return
+        m = as_tensor(mask, self.device) * as_tensor(weight, self.device)
+        self.total.add_(packets * m[:, None])
+        self.counts.add_(m)
+
+    def add_batch(self, packets, mask,
+                  weights: Union[float, object] = 1.0) -> None:
+        """Fold a client batch (B, N, W) + mask (B, N) into the state,
+        in place."""
+        assert self._finalized is None, "aggregator already finalized"
+        packets = as_tensor(packets, self.device)
+        mask = as_tensor(mask, self.device)
+        w = as_tensor(weights, self.device).expand(mask.shape[:1])
+        wmask = mask * w[:, None]
+        if self.use_kernel:
+            self.total, self.counts = _ops.fedavg_accum_into(
+                self.total, self.counts, packets, wmask)
+        else:
+            self.total.add_(torch.einsum("knw,kn->nw", packets, wmask))
+            self.counts.add_(wmask.sum(dim=0))
 
     def scatter_add(self, packets, idx, weights: Union[float, object] = 1.0,
                     mode: str = "exact") -> None:
@@ -66,7 +98,7 @@ class StreamingAggregator:
         w = w.contiguous()
         if self.use_kernel:
             _ops.packet_scatter_accum(packets, idx, self.total, self.counts,
-                                      weights=w, mode=mode, donate=True)
+                                      w, mode=mode)
         else:
             self.total, self.counts = _ref.packet_scatter_accum_ref(
                 packets, idx, self.total, self.counts, weights=w, mode=mode)
@@ -80,3 +112,15 @@ class StreamingAggregator:
         self.total.zero_()
         self.counts.zero_()
         self._finalized = None
+
+
+def streaming_rounds(uploads: Iterable[Tuple[object, object]],
+                     n_packets: int, payload_width: int, *,
+                     device=None) -> torch.Tensor:
+    """Drain an iterable of (packets, mask) uploads through the pipeline
+    on ``device``.  Each item may be a single upload (N, W) or a client
+    batch (B, N, W)."""
+    server = StreamingAggregator(n_packets, payload_width, device=device)
+    for packets, mask in uploads:
+        server.add(packets, mask)
+    return server.finalize()

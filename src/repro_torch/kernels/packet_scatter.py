@@ -30,25 +30,13 @@ Each function comes in three forms:
 """
 from __future__ import annotations
 
-import ctypes
-import dataclasses
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import time
 from typing import Optional
 
 import torch
 
-SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / \
-    "packet_scatter.cu"
-# the repo root's build/ (git-ignored): src/repro_torch/kernels -> root
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels import _build
+
 # the kernel stages a batch's idx, weights and hit list in shared
 # memory (12 B a packet); 2048 packets stay inside the default 48 KB.
 # EngineConfig refuses a ring capacity above it.
@@ -97,95 +85,41 @@ def packet_scatter_accum_q8_plain(packets: torch.Tensor, scales: torch.Tensor,
 # The CUDA kernels: build, load, launch
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
-class KernelLibrary:
-    lib: ctypes.CDLL
-    path: pathlib.Path
-    build_seconds: float      # 0.0 when an up-to-date build was reused
-    build_log: str            # nvcc's output (ptxas register/smem report)
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
-                       f"{SOURCE} at first use")
-
-
 @functools.cache
-def load_library() -> KernelLibrary:
-    """Build ``csrc/packet_scatter.cu`` into ``build/`` (once per source
-    hash) and load it."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"libpacket_scatter-{tag}.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.packet_scatter_accum_f32.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
-    lib.packet_scatter_accum_f32.restype = i32
-    lib.packet_scatter_accum_q8.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-    lib.packet_scatter_accum_q8.restype = i32
-    lib.packet_scatter_error_string.argtypes = [i32]
-    lib.packet_scatter_error_string.restype = ctypes.c_char_p
-    return KernelLibrary(lib, so, seconds, log)
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        msg = load_library().lib.packet_scatter_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+def load_library() -> _build.KernelLibrary:
+    """Build ``csrc/packet_scatter.cu`` (once per source hash) and load it."""
+    built = _build.load("packet_scatter")
+    _build.declare(built.lib, "packet_scatter_accum_f32", 5, 4)
+    _build.declare(built.lib, "packet_scatter_accum_q8", 6, 4)
+    return built
 
 
 def _launch_f32(pkt: int, idx: int, w: int, acc: int, cnt: int, n: int,
                 width: int, n_slots: int, exact: bool, stream: int) -> None:
-    err = load_library().lib.packet_scatter_accum_f32(
-        pkt, idx, w, acc, cnt, n, width, n_slots, int(exact), stream)
-    _raise_on(err, "packet_scatter_accum")
+    lib = load_library()
+    lib.check(lib.lib.packet_scatter_accum_f32(
+        pkt, idx, w, acc, cnt, n, width, n_slots, int(exact), stream),
+        "packet_scatter_accum")
     packet_scatter_accum.launches += 1
 
 
 def _launch_q8(pkt: int, scales: int, idx: int, w: int, acc: int, cnt: int,
                n: int, width: int, n_slots: int, exact: bool,
                stream: int) -> None:
-    err = load_library().lib.packet_scatter_accum_q8(
-        pkt, scales, idx, w, acc, cnt, n, width, n_slots, int(exact), stream)
-    _raise_on(err, "packet_scatter_accum_q8")
+    lib = load_library()
+    lib.check(lib.lib.packet_scatter_accum_q8(
+        pkt, scales, idx, w, acc, cnt, n, width, n_slots, int(exact),
+        stream), "packet_scatter_accum_q8")
     packet_scatter_accum_q8.launches += 1
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _check_accum(acc: torch.Tensor, counts: torch.Tensor) -> None:
     if not isinstance(acc, torch.Tensor) or acc.dim() != 2:
         raise ValueError("acc must be an (S, W) tensor")
-    _check("acc", acc, torch.float32, tuple(acc.shape), acc.device)
-    _check("counts", counts, torch.float32, (acc.shape[0],), acc.device)
+    _build.check_tensor("acc", acc, torch.float32, tuple(acc.shape),
+                        acc.device)
+    _build.check_tensor("counts", counts, torch.float32, (acc.shape[0],),
+                        acc.device)
     if acc.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no packet_scatter kernel for {acc.device}")
 
@@ -203,15 +137,12 @@ def _check_batch(packets, scales, idx, weights, acc, counts, pk_dtype):
         raise ValueError("idx must be an (N,) tensor")
     N = idx.shape[0]
     _check_batch_len(N)
-    _check("idx", idx, torch.int32, (N,), dev)
-    _check("weights", weights, torch.float32, (N,), dev)
-    _check("packets", packets, pk_dtype, (N, acc.shape[1]), dev)
+    _build.check_tensor("idx", idx, torch.int32, (N,), dev)
+    _build.check_tensor("weights", weights, torch.float32, (N,), dev)
+    _build.check_tensor("packets", packets, pk_dtype, (N, acc.shape[1]),
+                        dev)
     if scales is not None:
-        _check("scales", scales, torch.float32, (N,), dev)
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+        _build.check_tensor("scales", scales, torch.float32, (N,), dev)
 
 
 def packet_scatter_accum(packets: torch.Tensor, idx: torch.Tensor,
@@ -234,7 +165,8 @@ def packet_scatter_accum(packets: torch.Tensor, idx: torch.Tensor,
         return acc, counts
     _launch_f32(packets.data_ptr(), idx.data_ptr(), weights.data_ptr(),
                 acc.data_ptr(), counts.data_ptr(), idx.shape[0],
-                acc.shape[1], acc.shape[0], exact, _stream(acc.device))
+                acc.shape[1], acc.shape[0], exact,
+                _build.stream(acc.device))
     return acc, counts
 
 
@@ -260,7 +192,7 @@ def packet_scatter_accum_q8(packets: torch.Tensor, scales: torch.Tensor,
     _launch_q8(packets.data_ptr(), scales.data_ptr(), idx.data_ptr(),
                weights.data_ptr(), acc.data_ptr(), counts.data_ptr(),
                idx.shape[0], acc.shape[1], acc.shape[0], exact,
-               _stream(acc.device))
+               _build.stream(acc.device))
     return acc, counts
 
 
@@ -302,13 +234,14 @@ def packet_scatter_accum_rounds(sched_idx: torch.Tensor,
     B = sched_idx.shape[1]
     W, S = acc.shape[1], acc.shape[0]
     _check_batch_len(B)
-    _check("sched_idx", sched_idx, torch.int32, (R, B), dev)
-    _check("sched_w", sched_w, torch.float32, (R, B), dev)
-    _check("sched_pk", sched_pk, torch.int8 if q8 else torch.float32,
-           (R, B, W), dev)
+    _build.check_tensor("sched_idx", sched_idx, torch.int32, (R, B), dev)
+    _build.check_tensor("sched_w", sched_w, torch.float32, (R, B), dev)
+    _build.check_tensor("sched_pk", sched_pk,
+                        torch.int8 if q8 else torch.float32, (R, B, W), dev)
     if q8:
-        _check("sched_scales", sched_scales, torch.float32, (R, B), dev)
-    stream = _stream(dev)
+        _build.check_tensor("sched_scales", sched_scales, torch.float32,
+                            (R, B), dev)
+    stream = _build.stream(dev)
     p_idx, p_w, p_pk = (sched_idx.data_ptr(), sched_w.data_ptr(),
                         sched_pk.data_ptr())
     p_acc, p_cnt = acc.data_ptr(), counts.data_ptr()

@@ -1,7 +1,8 @@
-"""Sequential oracles for the hand-written kernels (the allclose targets).
+"""Oracles for the hand-written kernels (the allclose targets).
 
-Torch port of ``repro.kernels.ref``; only the scatter-accumulate oracle
-lies on the server round's path.
+Torch port of ``repro.kernels.ref``: the FedAvg accumulation oracles (one
+einsum, in the reference's order of operations) and the sequential
+scatter-accumulate oracle.
 """
 from __future__ import annotations
 
@@ -9,6 +10,32 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import host_array
+
+
+def fedavg_accum_ref(packets: torch.Tensor, wmask: torch.Tensor,
+                     finalize: bool = True):
+    """packets (K, C, W); wmask (K, C) -> (avg (C, W) f32, counts (C, 1)).
+
+    ``finalize=False`` returns the raw weighted sums instead of the
+    count-normalized average (the shard-partial form).
+    """
+    x = packets.to(torch.float32)
+    m = wmask.to(torch.float32)
+    total = torch.einsum("kcw,kc->cw", x, m)
+    counts = m.sum(dim=0)
+    if not finalize:
+        return total, counts[:, None]
+    avg = total / torch.clamp_min(counts, 1e-12)[:, None]
+    avg = torch.where(counts[:, None] > 0, avg, 0.0)
+    return avg, counts[:, None]
+
+
+def quantized_accum_ref(q: torch.Tensor, scales: torch.Tensor,
+                        wmask: torch.Tensor, finalize: bool = True):
+    """Dequantize-then-accumulate oracle (``q * s`` first, then the mask);
+    ``finalize=False`` gives the raw sums."""
+    deq = q.to(torch.float32) * scales.to(torch.float32)[..., None]
+    return fedavg_accum_ref(deq, wmask, finalize=finalize)
 
 
 def packet_scatter_accum_ref(packets, idx, acc, counts, weights=None,

@@ -7,15 +7,26 @@ tests).  Run on a GPU machine with
 
 The machine with the card has no JAX, so this file imports only the
 port; the JAX package is held against the plain versions on the CPU
-(test_torch_packet_scatter.py, test_torch_server.py).
+(test_torch_packet_scatter.py, test_torch_server.py,
+test_torch_fedavg_accum.py, test_torch_aggregation.py,
+test_torch_fedavg.py).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.paper_cnn import CNNConfig
+from repro_torch.core import aggregation as agg
 from repro_torch.core import engine_compiled as ec
 from repro_torch.core import server
+from repro_torch.core.fedavg import FedAvgConfig, ModelFns, run_fedavg
+from repro_torch.core.packets import quantize_payload
+from repro_torch.data.federated import partition_iid
+from repro_torch.data.synthetic import synthetic_image_classification
+from repro_torch.kernels import fedavg_accum as fa
 from repro_torch.kernels import packet_scatter as ps
+from repro_torch.kernels import quantized_accum as qa
+from repro_torch.models import cnn
 
 pytestmark = pytest.mark.gpu
 
@@ -161,3 +172,117 @@ def test_round_on_the_card_matches_the_cpu(cuda, wire, mode):
                             ring_capacity=16, mode=mode, compile=True),
         [(events, flats, down)] * 2, prev, weights=weights, device=cuda)
     assert torch.equal(chained[0].new_global.cpu(), base.new_global)
+
+
+def _accum(seed, dev, kcw, kind, integer):
+    K, C, W = kcw
+    rng = np.random.default_rng(seed)
+    m = ((rng.random((K, C)) > 0.2)
+         * rng.integers(1, 4, (K, 1))).astype(np.float32)
+    m[:, 0] = 0.0                                # a zero-count row
+    t = lambda a: torch.from_numpy(a).to(dev)
+    if kind == "int8":
+        q = rng.integers(-127, 128, (K, C, W)).astype(np.int8)
+        s = ((2.0 ** rng.integers(-6, 0, (K, C))) if integer
+             else rng.random((K, C)) / 127).astype(np.float32)
+        return (t(q), t(s), t(m))
+    x = t((rng.integers(-8, 9, (K, C, W)) if integer
+           else rng.normal(size=(K, C, W))).astype(np.float32))
+    return (x.to(torch.bfloat16) if kind == "bf16" else x, t(m))
+
+
+@pytest.mark.parametrize("kcw", [(1, 8, 128), (10, 37, 67), (17, 5, 367)],
+                         ids=str)
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("finalize", [True, False], ids=["avg", "raw"])
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "gauss"])
+def test_accum_kernels_match_plain(cuda, kcw, kind, finalize, integer):
+    args = _accum(0, cuda, kcw, kind, integer)
+    if kind == "int8":
+        kernel, plain = qa.quantized_accum, qa.quantized_accum_plain
+    else:
+        kernel, plain = fa.fedavg_accum, fa.fedavg_accum_plain
+    want = plain(*args, finalize=finalize)
+    before = kernel.launches
+    got = kernel(*args, finalize=finalize)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    tol = dict(rtol=0, atol=0) if integer else dict(rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[0], want[0], **tol)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    assert not got[0][0].any() and got[1][0] == 0
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "gauss"])
+def test_fedavg_accum_into_updates_in_place(cuda, integer):
+    x, m = _accum(1, cuda, (9, 21, 45), "f32", integer)
+    total = torch.randn((21, 45), device=cuda)
+    if integer:
+        total = total.round()
+    counts = torch.ones(21, device=cuda)
+    sums, cnts = fa.fedavg_accum_plain(x, m, finalize=False)
+    want = (total + sums, counts + cnts)
+    t, c = total.clone(), counts.clone()
+    before = fa.fedavg_accum.launches
+    out = fa.fedavg_accum_into(t, c, x, m)
+    torch.cuda.synchronize()
+    assert out[0] is t and out[1] is c
+    assert fa.fedavg_accum.launches == before + 1
+    tol = dict(rtol=0, atol=0) if integer else dict(rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(t, want[0], **tol)
+    torch.testing.assert_close(c, want[1], rtol=0, atol=0)
+
+
+def test_quantize_payload_on_the_card_matches_the_cpu(cuda):
+    x = torch.randn((7, 33, 367))
+    q, s = quantize_payload(x)
+    qc, sc = quantize_payload(x.to(cuda))
+    assert torch.equal(qc.cpu(), q) and torch.equal(sc.cpu(), s)
+
+
+@pytest.mark.parametrize("mode", ["exact", "int8"])
+def test_fused_round_step_on_the_card_matches_the_cpu(cuda, mode):
+    K, P, Wp = 6, 5000, 367
+    rng = np.random.default_rng(4)
+    N = -(-P // Wp)
+    host = [rng.integers(-8, 9, (K, P)).astype(np.float32),
+            (rng.random((K, N)) > 0.1).astype(np.float32),
+            (rng.random((K, N)) > 0.1).astype(np.float32),
+            rng.integers(-8, 9, P).astype(np.float32),
+            rng.integers(1, 4, K).astype(np.float32)]
+    counter = fa.fedavg_accum if mode == "exact" else qa.quantized_accum
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        before = counter.launches
+        args = [torch.from_numpy(a).to(dev) for a in host]
+        outs.append([t.cpu() for t in agg.fused_round_step(
+            *args[:4], Wp, mode=mode, weights=args[4], mix_alpha=0.25)])
+        assert counter.launches == before + (dev.type == "cuda")
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["exact", "int8", "approx"])
+def test_run_fedavg_on_the_card(cuda, mode):
+    cfg = CNNConfig(image_size=8, conv_channels=(8, 16, 16, 16),
+                    fc_hidden=32)
+    fns = ModelFns(
+        init=lambda g: cnn.init_cnn(g, cfg),
+        loss=lambda p, b, g: cnn.cnn_loss(p, b, cfg, dropout_rng=g),
+        test_metrics=lambda p, d: {
+            "test_loss": cnn.cnn_loss(p, d, cfg, train=False),
+            "test_acc": cnn.cnn_accuracy(p, d, cfg)})
+    rng = np.random.default_rng(0)
+    data = partition_iid(synthetic_image_classification(rng, 256,
+                                                        image_size=8), 4)
+    test = synthetic_image_classification(rng, 128, image_size=8)
+    before = (fa.fedavg_accum.launches, qa.quantized_accum.launches)
+    h = run_fedavg(fns, data, test,
+                   FedAvgConfig(n_clients=4, rounds=3, batch_size=32,
+                                agg_mode=mode, conflict_rate=0.01,
+                                uplink_loss=0.05, downlink_loss=0.05))
+    rise = (fa.fedavg_accum.launches - before[0],
+            qa.quantized_accum.launches - before[1])
+    assert rise == {"exact": (3, 0), "int8": (0, 3), "approx": (0, 0)}[mode]
+    assert np.isfinite(h["test_loss"]).all()
+    assert h["test_loss"][-1] < h["test_loss"][0]

@@ -45,6 +45,14 @@ def test_the_walk_sees_the_whole_port():
     for want in ("src/repro_torch/core/server.py",
                  "src/repro_torch/core/engine_compiled.py",
                  "src/repro_torch/kernels/packet_scatter.py",
+                 "src/repro_torch/kernels/fedavg_accum.py",
+                 "src/repro_torch/kernels/quantized_accum.py",
+                 "src/repro_torch/kernels/_build.py",
+                 "src/repro_torch/core/aggregation.py",
+                 "src/repro_torch/core/fedavg.py",
+                 "src/repro_torch/data/synthetic.py",
+                 "src/repro_torch/data/federated.py",
+                 "src/repro_torch/models/cnn.py",
                  "chip_smoke.py"):
         assert want in rel
 

@@ -209,33 +209,39 @@ def test_rounds_match_reference_scan(q8, exact):
 @pytest.mark.parametrize("mode", ["exact", "approx"])
 @pytest.mark.parametrize("donate", [False, True])
 def test_ops_wrapper_matches_reference_ops(mode, donate):
+    """The wrapper updates (acc, counts) in place, where the reference
+    donates them.  ``donate=False``: the caller keeps its buffers by
+    handing the wrapper clones."""
     pk, _, idx, w, acc, cnt = _batch(7)
     a_ref, c_ref = ref_ops.packet_scatter_accum(
         jnp.asarray(pk), jnp.asarray(idx), jnp.asarray(acc),
         jnp.asarray(cnt), weights=jnp.asarray(w), mode=mode)
     a, c = _t(acc), _t(cnt)
-    a2, c2 = ops.packet_scatter_accum(_t(pk), _t(idx), a, c, weights=_t(w),
-                                      mode=mode, donate=donate)
+    a_in, c_in = (a, c) if donate else (a.clone(), c.clone())
+    a2, c2 = ops.packet_scatter_accum(_t(pk), _t(idx), a_in, c_in, _t(w),
+                                      mode=mode)
     _check(a2, a_ref, True)
     _check(c2, c_ref, True)
-    # donate=True is the in-place update; otherwise the inputs stay put
-    assert (a2 is a) == donate and (c2 is c) == donate
+    assert a2 is a_in and c2 is c_in
     if not donate:
         assert torch.equal(a, _t(acc)) and torch.equal(c, _t(cnt))
 
 
 def test_ops_wrapper_defaults_and_mode_check():
+    """Unit weights (the reference's default) and the default exact mode;
+    an unknown mode raises."""
     pk, _, _, _, acc, cnt = _batch(8)
     idx = np.arange(N, dtype=np.int32) % S
     a_ref, c_ref = ref_ops.packet_scatter_accum(
         jnp.asarray(pk), jnp.asarray(idx), jnp.asarray(acc),
         jnp.asarray(cnt))
-    a, c = ops.packet_scatter_accum(_t(pk), _t(idx), _t(acc), _t(cnt))
+    a, c = ops.packet_scatter_accum(_t(pk), _t(idx), _t(acc), _t(cnt),
+                                    torch.ones(N))
     _check(a, a_ref, True)
     _check(c, c_ref, True)
     with pytest.raises(ValueError):
         ops.packet_scatter_accum(_t(pk), _t(idx), _t(acc), _t(cnt),
-                                 mode="fast")
+                                 torch.ones(N), mode="fast")
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])
