@@ -42,11 +42,12 @@
    a falling exact test loss, and one launch of ``fedavg_accum`` per
    exact round and of ``quantized_accum`` per int8 round.  Prints each
    round's local-training and aggregation seconds and peak device
-   memory.  Then one exact round at 1,000 samples per client under the
-   profiler (the device's busy time and idle share, the top kernels),
-   and one paper-width ``fused_round_step`` on integer flats through
-   the kernels equals the same step through the plain versions,
-   bitwise.
+   memory from ``run_fedavg``'s history.  Then two one-round exact runs
+   at 5,000 samples per client under the profiler, each read inside its
+   ``local_training`` span (the device's busy time and idle share, the
+   top kernels), and one paper-width ``fused_round_step`` on integer
+   flats through the kernels equals the same step through the plain
+   versions, bitwise.
 8. Prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
    line and, last, the ``{"ok": true, ...}`` line.  Any failed check
    raises before them.
@@ -701,9 +702,9 @@ def fedavg_config(mode, rounds, extra):
 def fedavg_path(dev, fns, test, datasets, log=print) -> dict:
     """``run_fedavg`` on the card: the paper CNN (4,585,546 parameters),
     K=10 clients, batch 64, one local epoch, synthetic data.  Checks
-    finite losses, a falling exact test loss, and that each exact round
-    launched #3 once and each int8 round #4 once (approx aggregates with
-    tensor ops).  -> per-round rows and the launch counts."""
+    finite losses, a falling exact test loss, and that each exact run
+    launched #3 and each int8 run #4 once per round (approx aggregates
+    with tensor ops).  -> per-round rows and the launch counts."""
     from repro_torch.core.fedavg import run_fedavg
     from repro_torch.kernels import fedavg_accum as fa
     from repro_torch.kernels import quantized_accum as qa
@@ -712,28 +713,18 @@ def fedavg_path(dev, fns, test, datasets, log=print) -> dict:
     fa.fedavg_accum.launches = qa.quantized_accum.launches = 0
     for mode, per_client, rounds, extra in FEDAVG_RUNS:
         cfg = fedavg_config(mode, rounds, extra)
-        last = [counters()]
-
-        def on_round(t, h):
-            now = counters()
-            rise = (now[0] - last[0][0], now[1] - last[0][1])
-            last[0] = now
-            want = {"exact": (1, 0), "int8": (0, 1), "approx": (0, 0)}[mode]
-            assert rise == want, (mode, t, rise, want)
+        before = counters()
+        h = run_fedavg(fns, datasets[per_client], test, cfg, device=dev)
+        rise = tuple(a - b for a, b in zip(counters(), before))
+        want = {"exact": (1, 0), "int8": (0, 1), "approx": (0, 0)}[mode]
+        assert rise == tuple(rounds * w for w in want), (mode, rise, want)
+        for t in h["round"]:
             row = {"mode": mode, "per_client": per_client, "round": t,
-                   "train_s": h["train_s"][-1], "agg_s": h["agg_s"][-1],
-                   "test_loss": h["test_loss"][-1],
-                   "test_acc": h["test_acc"][-1],
-                   "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-                   "launches": {"fedavg_accum": rise[0],
-                                "quantized_accum": rise[1]}}
-            torch.cuda.reset_peak_memory_stats(dev)
+                   **{key: h[key][t] for key in (
+                       "train_s", "agg_s", "test_loss", "test_acc",
+                       "peak_mem_bytes")}}
             rows.append(row)
             log(json.dumps(row))
-
-        torch.cuda.reset_peak_memory_stats(dev)
-        h = run_fedavg(fns, datasets[per_client], test, cfg, device=dev,
-                       on_round=on_round)
         assert np.isfinite(h["test_loss"]).all(), (mode, h["test_loss"])
         if mode == "exact":
             assert h["test_loss"][-1] < h["test_loss"][0], h["test_loss"]
@@ -742,36 +733,65 @@ def fedavg_path(dev, fns, test, datasets, log=print) -> dict:
                                        "quantized_accum": launches[1]}}
 
 
-def fedavg_breakdown(dev, fns, test, data, log=print) -> dict:
-    """Where one FedAvg round's device time goes: one exact round on
-    ``data`` under the profiler (device activity only).  -> the round's
-    wall time, the device's busy time and idle share, the accumulation
-    kernel's time, and the five kernels with the most device time."""
+def busy_within(intervals, start, end) -> float:
+    """Length of the union of ``intervals`` (pairs, any order) clipped
+    to ``[start, end]``."""
+    busy, reach = 0.0, start
+    for a, b in sorted(intervals):
+        a, b = max(a, reach), min(b, end)
+        if b > a:
+            busy += b - a
+            reach = b
+    return busy
+
+
+FEDAVG_PROFILED = 2
+
+
+def fedavg_breakdown(dev, fns, test, data, log=print) -> list:
+    """Where an exact FedAvg round's local training goes on the device:
+    ``FEDAVG_PROFILED`` one-round runs on ``data`` under the profiler
+    (host and device activity), each read inside ``run_fedavg``'s
+    ``local_training`` span only.  -> per run: the span's wall time, the
+    device's busy time and idle share within it, the accumulation
+    kernel's time in the round, and the five kernels with the most
+    device time in the span."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.fedavg import run_fedavg
     cfg = fedavg_config("exact", 1, {})
-    sync(dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        h = run_fedavg(fns, data, test, cfg, device=dev)
+    rows = []
+    for run in range(FEDAVG_PROFILED):
         sync(dev)
-        wall = time.perf_counter() - t0
-    per_kernel = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CPU:
-            per_kernel[e.key] = (per_kernel.get(e.key, 0.0)
-                                 + e.self_device_time_total / 1e6)
-    busy = sum(per_kernel.values())
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
-    row = {"round_s": wall, "train_s": h["train_s"][0],
-           "agg_s": h["agg_s"][0], "device_busy_s": busy,
-           "device_idle_share": 1 - busy / wall,
-           "accum_kernel_s": sum(v for k, v in per_kernel.items()
-                                 if "accum_kernel" in k),
-           "top_kernels": [[k[:80], v] for k, v in top]}
-    log(json.dumps(row))
-    return row
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            h = run_fedavg(fns, data, test, cfg, device=dev)
+        evs = prof.events()
+        (span,) = [e for e in evs if e.device_type == DeviceType.CPU
+                   and e.name == "local_training"]
+        s, e = span.time_range.start, span.time_range.end
+        on_dev = [ev for ev in evs if ev.device_type != DeviceType.CPU
+                  and not getattr(ev, "is_user_annotation", False)]
+        inside = [ev for ev in on_dev if s <= ev.time_range.start < e]
+        per_kernel = {}
+        for ev in inside:
+            per_kernel[ev.key] = (per_kernel.get(ev.key, 0.0)
+                                  + ev.time_range.elapsed_us() / 1e6)
+        busy = busy_within([(ev.time_range.start, ev.time_range.end)
+                            for ev in inside], s, e) / 1e6
+        wall = (e - s) / 1e6
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
+        row = {"run": run, "per_client": next(iter(data.values())).shape[1],
+               "span_s": wall, "train_s": h["train_s"][0],
+               "agg_s": h["agg_s"][0], "device_busy_s": busy,
+               "device_idle_share": 1 - busy / wall,
+               "accum_kernel_s": sum(
+                   ev.time_range.elapsed_us() for ev in on_dev
+                   if "accum_kernel" in ev.key) / 1e6,
+               "top_kernels": [[k[:80], v] for k, v in top]}
+        rows.append(row)
+        log(json.dumps(row))
+    return rows
 
 
 def round_step_parity(dev, n_params) -> None:
@@ -888,7 +908,7 @@ def main() -> int:
     for name, n in fed["launches"].items():
         assert n > 0, f"{name} was not launched on the training loop"
     path["launches"].update(fed["launches"])
-    fedavg_breakdown(dev, fns, test, datasets[min(datasets)],
+    fedavg_breakdown(dev, fns, test, datasets[max(datasets)],
                      log=lambda s: print("# fedavg breakdown " + s,
                                          flush=True))
     round_step_parity(dev, P)

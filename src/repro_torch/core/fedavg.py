@@ -24,9 +24,10 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import aggregation as agg
 from repro_torch.core.device import resolve_device
@@ -106,9 +107,7 @@ def _sync(device: torch.device) -> None:
 
 def run_fedavg(model: ModelFns, client_data: Dict[str, torch.Tensor],
                test_data: Dict[str, torch.Tensor], cfg: FedAvgConfig, *,
-               device=None,
-               on_round: Optional[Callable[[int, Dict], None]] = None,
-               ) -> Dict[str, List[float]]:
+               device=None) -> Dict[str, List[float]]:
     """client_data: dict of tensors with leading (K, n_k) axes (e.g.
     ``data.federated.partition_iid``); test_data: dict of (n, ...)
     tensors.  Runs on ``device`` (default CUDA; pass ``"cpu"`` for the
@@ -116,8 +115,10 @@ def run_fedavg(model: ModelFns, client_data: Dict[str, torch.Tensor],
 
     Returns the history: per round the global model's test metrics,
     ``train_s`` (the selected clients' local training) and ``agg_s``
-    (the server step), host seconds up to a device synchronisation.
-    ``on_round(t, history)`` is called after each round.
+    (the server step), host seconds up to a device synchronisation, and
+    ``peak_mem_bytes``, the round's peak allocated device memory (NaN on
+    the CPU).  The local training runs in a ``local_training`` profiler
+    span.
     """
     dev = resolve_device(device)
     gens = _generators(cfg.seed, dev)
@@ -136,19 +137,22 @@ def run_fedavg(model: ModelFns, client_data: Dict[str, torch.Tensor],
 
     history: Dict[str, List[float]] = {"round": [], "test_loss": [],
                                        "test_acc": [], "train_s": [],
-                                       "agg_s": []}
+                                       "agg_s": [], "peak_mem_bytes": []}
     m = max(int(cfg.client_fraction * K), 1)
     for t in range(cfg.rounds):
         _sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         sel_idx = torch.randperm(K, generator=gens["select"])[:m]
         sel = torch.zeros((K,), device=dev)
         sel[sel_idx.to(dev)] = 1.0
-        for k in sorted(sel_idx.tolist()):
-            client_flats[k] = local_update(
-                client_flats[k], {key: v[k] for key, v in data.items()},
-                gens["train"])
-        _sync(dev)
+        with record_function("local_training"):
+            for k in sorted(sel_idx.tolist()):
+                client_flats[k] = local_update(
+                    client_flats[k], {key: v[k] for key, v in data.items()},
+                    gens["train"])
+            _sync(dev)
         t1 = time.perf_counter()
         up = loss_mask(gens["uplink"], K, n_packets, cfg.uplink_loss)
         up = up * sel[:, None]                             # only selected join
@@ -168,6 +172,7 @@ def run_fedavg(model: ModelFns, client_data: Dict[str, torch.Tensor],
             history.setdefault(k, []).append(float(v))
         history["train_s"].append(t1 - t0)
         history["agg_s"].append(t2 - t1)
-        if on_round is not None:
-            on_round(t, history)
+        history["peak_mem_bytes"].append(
+            float(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda"
+            else float("nan"))
     return history

@@ -131,7 +131,8 @@ def test_packet_loss_tolerated(histories):
 
 def test_history_records_every_round(histories):
     for h in histories.values():
-        for key in ("round", "test_loss", "test_acc", "train_s", "agg_s"):
+        for key in ("round", "test_loss", "test_acc", "train_s", "agg_s",
+                    "peak_mem_bytes"):
             assert len(h[key]) == 6, key
         assert np.isfinite(h["test_loss"]).all()
 
@@ -140,12 +141,12 @@ def test_client_fraction_weighting_and_callback():
     client_data, test = _data(n_clients=4, n=256, seed=1)
     cfg = FedAvgConfig(n_clients=4, rounds=3, client_fraction=0.5,
                        batch_size=32, lr=0.05, weighted=True)
-    seen = []
     before = (fa.fedavg_accum.launches, qa.quantized_accum.launches)
-    h = run_fedavg(_model_fns(), client_data, test, cfg, device="cpu",
-                   on_round=lambda t, hist: seen.append(t))
-    assert len(h["test_loss"]) == 3 and seen == [0, 1, 2]
+    h = run_fedavg(_model_fns(), client_data, test, cfg, device="cpu")
+    assert len(h["test_loss"]) == 3 and h["round"] == [0, 1, 2]
     assert np.isfinite(h["test_loss"]).all()
+    # no device memory to read on the CPU
+    assert np.isnan(h["peak_mem_bytes"]).all()
     # on the CPU the server step runs the kernels' plain versions
     assert (fa.fedavg_accum.launches, qa.quantized_accum.launches) == before
 
