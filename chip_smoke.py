@@ -30,12 +30,40 @@
 5. Where a packet-path round's time goes: ``run_engine_round`` under the
    profiler; the compiled round's host demux and enqueue from the
    port's named spans, and the device's busy time.
-6. Holds the FedAvg accumulation kernels (``fedavg_accum`` on f32 and
+6. The robust finalize and placement kernels: ``robust_finalize``
+   against its plain version on the robust round's client tables (f32:
+   12,495 x 10 x 367, q8: 3,133 x 10 x 1,464; trimmed mean, beta 0.2,
+   and median; ~1% of the rows absent): bitwise on integer tables, max
+   abs error on Gaussian ones; ``packet_scatter`` against its plain
+   version on one client's downlink (12,495 slots, 5% lost, 2%
+   duplicates) and on 124,950 rows (a permutation of the table's rows,
+   2% duplicates), f32 and int8, with and without ``init``: bitwise.
+   Times each at its path's shape beside its bound, its plain version,
+   and ``index_copy_`` or, for the finalize, the sort-based twin
+   (several calls).
+7. The robust round at paper width: ``trimmed_mean``, ``median`` and
+   ``norm_clip`` (tau at half the median row norm, so the clip is
+   active), f32 and q8, eager and compiled, on the packet path's
+   streams.  Checks eager == compiled and compiled == the same round
+   with every kernel replaced by its plain version, bit for bit; the
+   stats' conservation and counts; that kernels 1/2 launched once per
+   schedule row of the rounds whose fold makes the result (the compiled
+   rounds and eager norm clip: the eager trimmed mean and median fill
+   their client table on the host) and ``robust_finalize`` once per
+   trimmed-mean or median round.  Prints round time and peak device memory, then each compiled
+   round under the profiler (device busy, kernel times, idle share).
+   The clients' side of the f32 rounds' downlink goes through
+   ``ops.packet_scatter`` and must reproduce the engine's client state.
+8. The attack driver: ``run_churn_rounds`` at paper width, 3 rounds
+   with churn, stragglers, loss and duplicates and one 1e4x scale
+   attacker; the trimmed mean must stay within 20 of the honest mean and
+   the mean must leave it by over 100.
+9. Holds the FedAvg accumulation kernels (``fedavg_accum`` on f32 and
    bf16 payloads, ``quantized_accum`` on int8; finalize on and off; the
    ``into`` fold) against their plain versions at the training loop's
    shapes (K=10, C=12,495, W=367), at the same tolerances, and times
    them beside their plain versions, ``torch.einsum`` and the bound.
-7. The FedAvg training loop: ``run_fedavg`` trains the paper CNN at
+10. The FedAvg training loop: ``run_fedavg`` trains the paper CNN at
    full width (K=10, batch 64, one local epoch, synthetic data): exact
    at 5,000 samples per client, int8 and approx (conflict rate 0.005,
    4.68% downlink loss) at 1,000, 3 rounds each.  Checks finite losses,
@@ -48,7 +76,7 @@
    top kernels), and one paper-width ``fused_round_step`` on integer
    flats through the kernels equals the same step through the plain
    versions, bitwise.
-8. Prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
+11. Prints the card's ``nvidia-smi`` line, the ``{"kernels": [...]}``
    line and, last, the ``{"ok": true, ...}`` line.  Any failed check
    raises before them.
 
@@ -77,6 +105,7 @@ K_CLIENTS = 10
 N_WORKERS = 5
 RING_CAPACITY = 64
 LOSS, DUP = 0.01, 0.02
+DOWN_LOSS = 0.05
 SEED = 0
 
 
@@ -284,7 +313,7 @@ def make_workload(rng, n_clients, n_params, q8) -> Workload:
     flats = rng.integers(-8, 9, (n_clients, n_params)).astype(np.float32)
     prev = rng.integers(-8, 9, n_params).astype(np.float32)
     weights = rng.integers(1, 4, n_clients).astype(np.float32)
-    down = (rng.random((n_clients, N)) >= 0.05).astype(np.float32)
+    down = (rng.random((n_clients, N)) >= DOWN_LOSS).astype(np.float32)
     if q8:
         # power-of-two scales keep every sum exact: bitwise checks hold
         pk = rng.integers(-127, 128, (n_clients, N, W)).astype(np.int8)
@@ -818,13 +847,500 @@ def round_step_parity(dev, n_params) -> None:
             assert torch.equal(a, b), f"fused_round_step {mode}: {name}"
 
 
+# ---------------------------------------------------------------------------
+# The robust finalize (#5) and placement (#6) kernels at the main path's
+# shapes
+# ---------------------------------------------------------------------------
+
+def robust_table(rng, dev, S, K, W, integer):
+    """A per-slot client table as a paper-width robust round folds it:
+    ~1% of the (slot, client) rows absent (zero), integer values in a
+    narrow range (ties) or Gaussian ones, one slot with every client
+    absent."""
+    pres = (rng.random((S, K)) >= 0.01).astype(np.float32)
+    pres[0] = 0.0
+    tab = (rng.integers(-8, 9, (S, K, W)) if integer
+           else rng.normal(size=(S, K, W))).astype(np.float32)
+    tab *= pres[:, :, None]
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return t(tab), t(pres)
+
+
+def compare_robust(rng, dev, shapes) -> float:
+    """``robust_finalize`` against its plain version at each (S, K, W) of
+    ``shapes``, trimmed mean (beta 0.2) and median: bitwise on integer
+    tables (raises otherwise), max |kernel - plain| on Gaussian ones
+    (rtol 1e-5 / atol 1e-6).  -> the max abs error."""
+    from repro_torch.kernels import packet_scatter as ps
+    err = 0.0
+    for S, K, W in shapes:
+        for integer in (True, False):
+            tab, pres = robust_table(rng, dev, S, K, W, integer)
+            for median, beta in ((False, 0.2), (True, 0.0)):
+                got = ps.robust_finalize(tab, pres, median=median, beta=beta)
+                want = ps.robust_finalize_plain(tab, pres, median=median,
+                                                beta=beta)
+                sync(dev)
+                what = f"robust_finalize {S}x{K}x{W} median={median}"
+                assert torch.equal(got[1], want[1]), what
+                e = assert_close(got[0], want[0], integer, what)
+                assert not integer or e == 0.0, what
+                err = max(err, e)
+    return err
+
+
+def robust_sort_twin(table, pres, median, beta):
+    """The reference's sort-based formulation in several PyTorch calls
+    (sort over the clients, then a masked mean of the kept ranks): no
+    single library call computes a trimmed mean or an averaging median,
+    so this is the yardstick, labelled as several calls."""
+    K = table.shape[1]
+    p = pres > 0
+    m = p.to(torch.float32).sum(dim=1)
+    vs = torch.sort(torch.where(p[:, :, None], table,
+                                torch.finfo(torch.float32).max), dim=1).values
+    t = (torch.floor((m - 1.0) * 0.5) if median
+         else torch.floor(m * torch.tensor(beta, device=table.device)))
+    t = torch.clamp_min(t, 0.0)[:, None, None]
+    r = torch.arange(K, device=table.device, dtype=torch.float32)[None, :,
+                                                                   None]
+    keep = (r >= t) & (r < m[:, None, None] - t)
+    kept = keep.to(torch.float32).sum(dim=1)
+    agg = torch.where(keep, vs, 0.0).sum(dim=1) / torch.clamp_min(kept, 1e-12)
+    return torch.where(kept > 0, agg, 0.0), m
+
+
+def robust_bound(table, pres) -> tuple:
+    """Least time (ms) of one finalize and what bounds it: the present
+    rows of the table and the presence read once (absent rows are never
+    loaded), agg and m written once; per present value K compares and
+    an add, and a divide per coordinate."""
+    S, K, W = table.shape
+    present = float((pres > 0).sum())
+    nbytes = (present * W + S * K + S * W + S) * 4
+    ops = present * W * (K + 1) + S * W
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_robust(rng, dev, S, K, W, S_q8, W_q8) -> dict:
+    """Kernel (trimmed mean and median), plain version and the sort-based
+    twin on a Gaussian table at the f32 round's shape, and the kernel on
+    the q8 round's table shape."""
+    from repro_torch.kernels import packet_scatter as ps
+    tab, pres = robust_table(rng, dev, S, K, W, integer=False)
+    few = dict(iters=50, warmup=5, calls=20)
+    out = timed({
+        "": lambda: ps.robust_finalize(tab, pres, beta=0.2),
+        "median_": lambda: ps.robust_finalize(tab, pres, median=True),
+        "plain_": lambda: ps.robust_finalize_plain(tab, pres, beta=0.2),
+        "sort_twin_": lambda: robust_sort_twin(tab, pres, False, 0.2),
+    }, **few)
+    out["bound_ms"], out["bound_by"] = robust_bound(tab, pres)
+    del tab, pres
+    tq, pq = robust_table(rng, dev, S_q8, K, W_q8, integer=False)
+    out.update({"q8_table_" + k: v for k, v in timed(
+        {"": lambda: ps.robust_finalize(tq, pq, beta=0.2)}, **few).items()})
+    out["q8_table_bound_ms"], _ = robust_bound(tq, pq)
+    out["library_ms"] = None
+    return out
+
+
+def downlink_order(rng, down) -> np.ndarray:
+    """The slots of one client's downlink in arrival order: the packets
+    that reached it (``down > 0``), shuffled, ``DUP`` of them delivered
+    twice."""
+    order = rng.permutation(np.nonzero(down > 0)[0])
+    again = order[rng.random(order.size) < DUP]
+    return np.concatenate([order, again]).astype(np.int32)
+
+
+def placement_inputs(rng, dev, n_slots, W, table=False,
+                     dtype=torch.float32) -> dict:
+    """Inputs of the placement kernel.  The placement path's shape: one
+    client's downlink (``downlink_order`` over ``n_slots`` packets with
+    ``DOWN_LOSS`` lost) placed into its ``n_slots`` packetized state,
+    the ``init``.  With ``table``: as many packets as buffer rows, a
+    seeded permutation with 2% of them replaced by an earlier packet's
+    index (the robust table's S*K rows as packets)."""
+    if table:
+        idx = rng.permutation(n_slots).astype(np.int32)
+        dup = np.nonzero(rng.random(n_slots) < 0.02)[0]
+        dup = dup[dup > 0]
+        idx[dup] = idx[rng.integers(0, dup)]
+    else:
+        idx = downlink_order(rng, rng.random(n_slots) >= DOWN_LOSS)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return {"packets": t(rng.normal(size=(idx.size, W)).astype(np.float32)
+                         ).to(dtype),
+            "idx": t(idx),
+            "init": t(rng.normal(size=(n_slots, W)).astype(np.float32)
+                      ).to(dtype)}
+
+
+def compare_placement(rng, dev, n_slots, W, n_table_rows) -> float:
+    """``packet_scatter`` against its plain version at the placement
+    path's shape and the table shape, f32 and int8 rows, with and
+    without ``init``: bitwise (raises otherwise)."""
+    from repro_torch.kernels import packet_scatter as ps
+    for n, table in ((n_slots, False), (n_table_rows, True)):
+        for dtype in (torch.float32, torch.int8):
+            inp = placement_inputs(rng, dev, n, W, table, dtype)
+            for init in (None, inp["init"]):
+                want = ps.packet_scatter_plain(inp["packets"], inp["idx"],
+                                               n, init)
+                got = ps.packet_scatter(inp["packets"], inp["idx"], n,
+                                        None if init is None
+                                        else init.clone())
+                sync(dev)
+                assert torch.equal(got, want), f"packet_scatter {n} {dtype}"
+    return 0.0
+
+
+def placement_bound(idx, W, elem_bytes=4) -> float:
+    """Least time (ms) of one placement: ``idx`` read once, and only the
+    winning packet of each placed row read and written once (the losing
+    duplicates and the uncovered rows of ``init`` are never touched)."""
+    placed = int(torch.unique(idx).numel())
+    nbytes = idx.numel() * 4 + 2 * placed * W * elem_bytes
+    return nbytes / HBM_BYTES_PER_S * 1e3, placed
+
+
+def time_placement(rng, dev, n_slots, W, n_table_rows) -> dict:
+    """Kernel, plain version and ``index_copy_`` (the library call that
+    places rows; its order under duplicates is unspecified on CUDA, so
+    it is timed and not checked) at the placement path's shape; the
+    kernel alone at the table shape, under ``table_shape_`` keys."""
+    from repro_torch.kernels import packet_scatter as ps
+    inp = placement_inputs(rng, dev, n_slots, W)
+    pk, idx, buf = inp["packets"], inp["idx"], inp["init"]
+    idx64 = idx.long()
+    few = dict(iters=50, warmup=5, calls=20)
+    out = timed({
+        "": lambda: ps.packet_scatter(pk, idx, n_slots, buf),
+        "plain_": lambda: ps.packet_scatter_plain(pk, idx, n_slots, buf),
+        "library_": lambda: buf.index_copy_(0, idx64, pk),
+    }, **few)
+    out["bound_ms"], out["placed_rows"] = placement_bound(idx, W)
+    out["bound_by"] = "bytes"
+    out["n_packets"] = idx.numel()
+    tab = placement_inputs(rng, dev, n_table_rows, W, table=True)
+    out.update({"table_shape_" + k: v for k, v in timed(
+        {"": lambda: ps.packet_scatter(tab["packets"], tab["idx"],
+                                       n_table_rows, tab["init"])},
+        **few).items()})
+    out["table_shape_bound_ms"], out["table_shape_placed_rows"] = \
+        placement_bound(tab["idx"], W)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The robust round (trimmed mean, median, norm clip) at paper width
+# ---------------------------------------------------------------------------
+
+ROBUST_MODES = ("trimmed_mean", "median", "norm_clip")
+TRIM_BETA = 0.2
+
+
+def clip_tau(wl: Workload) -> float:
+    """Half the median (decoded) row norm of the workload's packets, so
+    that the clip is active on most rows."""
+    rows = wl.pk.astype(np.float32)
+    if wl.scales is not None:
+        rows = rows * wl.scales[..., None]
+    return 0.5 * float(np.median(np.linalg.norm(rows, axis=-1)))
+
+
+def robust_config(wl: Workload, agg: str, compiled: bool, tau: float):
+    from repro_torch.core.server import EngineConfig
+    return EngineConfig(n_clients=wl.flats.shape[0],
+                        n_params=wl.flats.shape[1], payload=wl.pk.shape[2],
+                        n_workers=N_WORKERS, ring_capacity=RING_CAPACITY,
+                        compile=compiled, agg_mode=agg, trim_beta=TRIM_BETA,
+                        clip_tau=tau)
+
+
+def plain_robust_round(cfg, events, wl: Workload, dev):
+    """The compiled robust round with every kernel replaced by its plain
+    version on ``dev``: the schedule folded row by row by the plain
+    scatter (into the (S*K, W) table for the table modes, after the norm
+    clip for norm_clip), then the plain rank-select finalize or the END
+    divide, the fallback and the downlink."""
+    from repro_torch.core import engine_compiled as ec
+    from repro_torch.core.server import RoundResult, downlink, \
+        fallback_global
+    from repro_torch.core.pipeline import finalize_mean
+    from repro_torch.kernels import packet_scatter as ps
+    sched, stats, up = ec.demux_events(cfg, events, wl.weights)
+    table = cfg.agg_mode in ("trimmed_mean", "median")
+    rows = cfg.n_slots * (cfg.n_clients if table else 1)
+    if table:
+        sched = ec._combined_table_sched(sched, cfg.n_clients)
+    acc = torch.zeros((rows, cfg.payload), device=dev)
+    cnt = torch.zeros((rows,), device=dev)
+    t = lambda a: None if a is None else torch.from_numpy(a).to(dev)
+    exact = table or cfg.mode == "exact"
+    for r in range(sched.n_batches):
+        sc = None if sched.scales is None else t(sched.scales[r])
+        pk, idx, w = t(sched.payloads[r]), t(sched.idx[r]), t(
+            sched.weights[r])
+        if cfg.agg_mode == "norm_clip":
+            w = ps.norm_clip_weights(w, pk, tau=cfg.clip_tau, scales=sc)
+        if sc is None:
+            acc, cnt = ps.packet_scatter_accum_plain(pk, idx, w, acc, cnt,
+                                                     exact=exact)
+        else:
+            acc, cnt = ps.packet_scatter_accum_q8_plain(pk, sc, idx, w, acc,
+                                                        cnt, exact=exact)
+    if table:
+        agg, counts = ps.robust_finalize_plain(
+            acc.view(cfg.n_slots, cfg.n_clients, cfg.payload),
+            cnt.view(cfg.n_slots, cfg.n_clients),
+            median=(cfg.agg_mode == "median"), beta=cfg.trim_beta)
+    else:
+        agg, counts = finalize_mean(acc, cnt), cnt
+    g = fallback_global(agg, counts, wl.prev, cfg.payload, cfg.n_params)
+    flats = downlink(g, wl.flats, wl.down, cfg.payload, cfg.n_params)
+    return RoundResult(g, counts, t(up), flats, stats)
+
+
+def check_robust_round(res, events, wl: Workload, cfg) -> None:
+    """Conservation, counts and finiteness of one robust round: the
+    table modes count contributors per slot (unweighted); norm_clip's
+    counts are the clipped weights, at most the weighted arrivals."""
+    s = res.stats
+    buckets = (s.data_enqueued + s.duplicates_dropped + s.phase_dropped
+               + s.late_dropped + s.malformed_dropped)
+    assert buckets == count_data(events), (buckets, count_data(events))
+    up = res.up_mask.cpu().numpy()
+    assert s.data_enqueued == int(up.sum())
+    counts = res.counts.cpu().numpy()
+    if cfg.agg_mode == "norm_clip":
+        weighted = (up * wl.weights[:, None]).sum(axis=0)
+        assert (counts <= weighted).all() and ((counts > 0)
+                                               == (weighted > 0)).all()
+        assert counts.sum() < weighted.sum(), "the clip was not active"
+    else:
+        np.testing.assert_array_equal(counts, up.sum(axis=0))
+    for name in ("new_global", "new_client_flats"):
+        x = getattr(res, name)
+        assert bool(torch.isfinite(x).all()), name
+    assert tuple(res.new_global.shape) == (cfg.n_params,)
+    assert tuple(res.new_client_flats.shape) == (cfg.n_clients,
+                                                 cfg.n_params)
+
+
+def robust_path(dev, n_clients, n_params, log=print) -> dict:
+    """The robust modes at paper width through ``run_engine_round``,
+    eager and compiled, f32 and q8, with the counts of every kernel at 0
+    just before and read just after.  Checks eager == compiled and
+    compiled == plain bitwise, conservation, counts and finiteness, and
+    that kernels 1/2 launched once per schedule row of the rounds that
+    fold on the card (not the eager table modes, whose table is filled
+    on the host) and kernel 5 once per table-mode round.  -> per-round rows, the launch counts and one
+    compiled f32 result per mode (for the placement path)."""
+    from repro_torch.core.server import make_uplink_stream, run_engine_round
+    from repro_torch.kernels import packet_scatter as ps
+    rng = np.random.default_rng(SEED + 3)
+    counters = (ps.packet_scatter_accum, ps.packet_scatter_accum_q8,
+                ps.robust_finalize, ps.packet_scatter)
+    for c in counters:
+        c.launches = 0
+    rows, rows_folded, table_rounds, kept = [], 0, 0, {}
+    for wire in ("f32", "q8"):
+        wl = make_workload(rng, n_clients, n_params, q8=(wire == "q8"))
+        events, _ = make_uplink_stream(rng, wl.pk, loss_rate=LOSS,
+                                       dup_rate=DUP, scales=wl.scales)
+        tau = clip_tau(wl)
+        for agg in ROBUST_MODES:
+            results = {}
+            for compiled in (False, True):
+                cfg = robust_config(wl, agg, compiled, tau)
+                # the peak counts what the earlier rounds' kept results
+                # hold: report it with the memory in use before the round
+                held = None
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    held = torch.cuda.memory_allocated(dev)
+                sync(dev)
+                t0 = time.perf_counter()
+                res = run_engine_round(cfg, wl.flats, wl.prev, events,
+                                       down_mask=wl.down, weights=wl.weights,
+                                       device=dev)
+                sync(dev)
+                dt = time.perf_counter() - t0
+                check_robust_round(res, events, wl, cfg)
+                if compiled or agg == "norm_clip":
+                    # the eager table modes drain for the stats only
+                    rows_folded += res.stats.batches_drained
+                table_rounds += agg != "norm_clip"
+                results[compiled] = res
+                row = {"wire": wire, "agg_mode": agg,
+                       "engine": "compiled" if compiled else "eager",
+                       "round_s": dt, "data_packets": count_data(events),
+                       "batches": res.stats.batches_drained,
+                       "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                                          if dev.type == "cuda" else None),
+                       "held_before_bytes": held}
+                if agg == "norm_clip":
+                    row["clip_tau"] = tau
+                rows.append(row)
+                log(json.dumps(row))
+            assert_same(results[False], results[True],
+                        f"eager vs compiled {wire} {agg}")
+            plain = plain_robust_round(cfg, events, wl, dev)
+            assert_same(results[True], plain,
+                        f"plain vs compiled {wire} {agg}")
+            if wire == "f32":
+                kept[agg] = (results[True], wl)
+    launches = {c.__name__: c.launches for c in counters}
+    folds = (launches["packet_scatter_accum"]
+             + launches["packet_scatter_accum_q8"])
+    if dev.type == "cuda":
+        assert folds == rows_folded, (folds, rows_folded)
+        assert launches["robust_finalize"] == table_rounds, launches
+    return {"rows": rows, "launches": launches, "kept": kept}
+
+
+def robust_breakdown(dev, n_clients, n_params, log=print) -> list:
+    """Where a compiled robust round's time goes: each mode on each wire
+    under the profiler (device activity only), the device's busy time,
+    the scatter and finalize kernels' time and the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.server import make_uplink_stream, run_engine_round
+    rng = np.random.default_rng(SEED + 4)
+    rows = []
+    for wire in ("f32", "q8"):
+        wl = make_workload(rng, n_clients, n_params, q8=(wire == "q8"))
+        events, _ = make_uplink_stream(rng, wl.pk, loss_rate=LOSS,
+                                       dup_rate=DUP, scales=wl.scales)
+        tau = clip_tau(wl)
+        for agg in ROBUST_MODES:
+            cfg = robust_config(wl, agg, True, tau)
+            torch.cuda.reset_peak_memory_stats(dev)
+            sync(dev)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run_engine_round(cfg, wl.flats, wl.prev, events,
+                                 down_mask=wl.down, weights=wl.weights,
+                                 device=dev)
+                sync(dev)
+                dt = time.perf_counter() - t0
+            on_dev = [e for e in prof.events()
+                      if e.device_type != DeviceType.CPU]
+            busy = sum(e.self_device_time_total for e in on_dev) / 1e6
+            pick = lambda key: sum(e.self_device_time_total for e in on_dev
+                                   if key in e.key) / 1e6
+            row = {"wire": wire, "agg_mode": agg, "round_s": dt,
+                   "device_busy_s": busy,
+                   "scatter_kernel_s": pick("scatter_accum_kernel"),
+                   "finalize_kernel_s": pick("robust_finalize"),
+                   "h2d_s": pick("HtoD"), "device_idle_share": 1 - busy / dt,
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+            rows.append(row)
+            log(json.dumps(row))
+    return rows
+
+
+def placement_path(dev, kept, log=print) -> dict:
+    """The clients' side of a robust round's downlink through the entry
+    point ``ops.packet_scatter``: each client places the global's
+    packets that reached it (shuffled, 2% delivered twice) into its own
+    packetized state, so lost packets keep the local value.  Per mode
+    the result must equal the engine's ``new_client_flats`` bit for bit.
+    Counts at 0 just before, read just after."""
+    from repro_torch.core.packets import depacketize, packetize
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import packet_scatter as ps
+    rng = np.random.default_rng(SEED + 5)
+    ps.packet_scatter.launches = 0
+    t0 = time.perf_counter()
+    for agg, (res, wl) in kept.items():
+        W = wl.pk.shape[2]
+        gpk = packetize(res.new_global, W)
+        for k in range(wl.flats.shape[0]):
+            idx = torch.from_numpy(downlink_order(rng, wl.down[k])).to(dev)
+            local = packetize(torch.from_numpy(wl.flats[k]).to(dev), W)
+            placed = ops.packet_scatter(gpk[idx.long()], idx, gpk.shape[0],
+                                        local.contiguous())
+            flat = depacketize(placed, wl.flats.shape[1])
+            assert torch.equal(flat, res.new_client_flats[k]), (agg, k)
+    sync(dev)
+    out = {"launches": ps.packet_scatter.launches,
+           "seconds": time.perf_counter() - t0}
+    log(json.dumps(out))
+    return out
+
+
+ATTACK_ROUNDS = 3
+
+
+def attack_path(dev, n_clients, n_params, log=print) -> dict:
+    """``run_churn_rounds`` at paper width with the settings of the churn
+    attack sweep (tests/test_robust_agg.py): integer flats in [-4, 4],
+    participation 0.9, 15% stragglers, 10% loss, 5% duplicates, one
+    scale attacker boosting 1e4x, 3 rounds, the paper's 5 workers and
+    ring capacity 64; ``trimmed_mean`` (beta 0.25) against ``mean``.
+    Asserts the sweep's inequalities.  Counts at 0 just before each run,
+    read just after."""
+    from repro_torch.core.packets import PAYLOAD_F32
+    from repro_torch.core.rounds import (AttackConfig, ChurnConfig,
+                                         run_churn_rounds)
+    from repro_torch.core.server import EngineConfig
+    from repro_torch.kernels import packet_scatter as ps
+    rng = np.random.default_rng(7)
+    flats = rng.integers(-4, 5, (n_clients, n_params)).astype(np.float32)
+    prev = np.zeros(n_params, np.float32)
+    churn = ChurnConfig(participation=0.9, straggle_rate=0.15,
+                        loss_rate=0.1, dup_rate=0.05)
+    attack = AttackConfig("scale", n_attackers=1, boost=1e4)
+    honest_mean = flats.mean(axis=0)
+    out = {}
+    for agg in ("trimmed_mean", "mean"):
+        cfg = EngineConfig(n_clients=n_clients, n_params=n_params,
+                           payload=PAYLOAD_F32, n_workers=N_WORKERS,
+                           ring_capacity=RING_CAPACITY, compile=True,
+                           agg_mode=agg, trim_beta=0.25, min_clients=1)
+        for c in (ps.packet_scatter_accum, ps.robust_finalize):
+            c.launches = 0
+        sync(dev)
+        t0 = time.perf_counter()
+        hist = run_churn_rounds(cfg, churn, flats, prev, ATTACK_ROUNDS,
+                                rng=np.random.default_rng(11), attack=attack,
+                                device=dev)
+        g = hist.final_global.cpu().numpy()
+        dt = time.perf_counter() - t0
+        rows_folded = sum(r.stats.batches_drained for r in hist.results)
+        if dev.type == "cuda":
+            assert ps.packet_scatter_accum.launches == rows_folded
+            assert ps.robust_finalize.launches == (
+                ATTACK_ROUNDS if agg == "trimmed_mean" else 0)
+        assert np.isfinite(g).all()
+        out[agg] = {"max_abs_err": float(np.abs(g - honest_mean).max()),
+                    "seconds": dt,
+                    "launches": {"packet_scatter_accum":
+                                 ps.packet_scatter_accum.launches,
+                                 "robust_finalize":
+                                 ps.robust_finalize.launches}}
+        log(json.dumps({"agg_mode": agg, **out[agg]}))
+    err_robust = out["trimmed_mean"]["max_abs_err"]
+    err_mean = out["mean"]["max_abs_err"]
+    assert err_mean > 100.0, err_mean
+    assert err_robust < 20.0, err_robust
+    assert err_robust < err_mean
+    return out
+
+
 def build_all() -> list:
     """Build every kernel library of ``csrc/``, one ``nvcc`` each, all
     started together."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import fedavg_accum as fa
     from repro_torch.kernels import packet_scatter as ps
-    loaders = (ps.load_library, fa.load_library)
+    loaders = (ps.load_library, fa.load_library, ps.load_robust_library,
+               ps.load_place_library)
     with ThreadPoolExecutor(len(loaders)) as pool:
         return list(pool.map(lambda load: load(), loaders))
 
@@ -889,6 +1405,54 @@ def main() -> int:
     round_breakdown(dev, K_CLIENTS, P,
                     log=lambda s: print("# breakdown " + s, flush=True))
 
+    # the robust finalize and placement kernels at the robust round's
+    # shapes: the (S, K, W) client tables of both wires; one client's
+    # downlink placed into its S packets (and, checked too, the S*K rows
+    # of the f32 table as packets to place)
+    S, W = shapes["packet_scatter_accum"][:2]
+    S8, W8 = shapes["packet_scatter_accum_q8"][:2]
+    err = compare_robust(rng, dev, [(S, K_CLIENTS, W), (S8, K_CLIENTS, W8)])
+    timing = time_robust(rng, dev, S, K_CLIENTS, W, S8, W8)
+    kernels["robust_finalize"] = {"S": S, "K": K_CLIENTS, "W": W,
+                                  "max_abs_err": err, **timing}
+    print(f"# robust_finalize S={S} K={K_CLIENTS} W={W} (q8 table S={S8} "
+          f"W={W8}): max_abs_err {err:.3g}; " + json.dumps(timing),
+          flush=True)
+    err = compare_placement(rng, dev, S, W, S * K_CLIENTS)
+    timing = time_placement(rng, dev, S, W, S * K_CLIENTS)
+    kernels["packet_scatter"] = {"n_slots": S, "W": W,
+                                 "table_shape_n": S * K_CLIENTS,
+                                 "max_abs_err": err, **timing}
+    print(f"# packet_scatter N={timing['n_packets']} into S={S} W={W} "
+          f"(table shape {S * K_CLIENTS} rows checked too): max_abs_err "
+          f"{err:.3g}; " + json.dumps(timing), flush=True)
+
+    # the robust path: counts at 0 just before, read just after
+    t0 = time.perf_counter()
+    robust = robust_path(dev, K_CLIENTS, P,
+                         log=lambda s: print("# robust " + s, flush=True))
+    print(f"# robust path: {time.perf_counter() - t0:.1f} s; launches "
+          + json.dumps(robust["launches"]), flush=True)
+    placement = placement_path(
+        dev, robust.pop("kept"),
+        log=lambda s: print("# placement " + s, flush=True))
+    for name, n in (("robust_finalize",
+                     robust["launches"]["robust_finalize"]),
+                    ("packet_scatter", placement["launches"])):
+        assert n > 0, f"{name} was not launched on the robust path"
+        path["launches"][name] = n
+    for name in ("packet_scatter_accum", "packet_scatter_accum_q8"):
+        assert robust["launches"][name] > 0, name
+        kernels[name]["robust_path_launches"] = robust["launches"][name]
+    robust_breakdown(dev, K_CLIENTS, P,
+                     log=lambda s: print("# robust breakdown " + s,
+                                         flush=True))
+    attack = attack_path(dev, K_CLIENTS, P,
+                         log=lambda s: print("# attack " + s, flush=True))
+    print(f"# attack: trimmed_mean max |global - honest mean| "
+          f"{attack['trimmed_mean']['max_abs_err']:.6g} < 20, mean "
+          f"{attack['mean']['max_abs_err']:.6g} > 100", flush=True)
+
     # the FedAvg accumulation kernels at the training loop's shapes
     C = PacketizedShape(P, PAYLOAD_F32).n_packets
     accum_err = compare_accum(rng, dev, K_CLIENTS, C, PAYLOAD_F32)
@@ -924,7 +1488,11 @@ def main() -> int:
         "fedavg_accum": ("fedavg_accum.cu", "fedavg_accum.py:59",
                          "fedavg_accum_pallas"),
         "quantized_accum": ("fedavg_accum.cu", "quantized_accum.py:48",
-                            "quantized_accum_pallas")}
+                            "quantized_accum_pallas"),
+        "robust_finalize": ("robust_finalize.cu", "packet_scatter.py:440",
+                            "robust_finalize_pallas"),
+        "packet_scatter": ("packet_place.cu", "packet_scatter.py:65",
+                           "packet_scatter_pallas")}
     line = []
     for name, k in kernels.items():
         source, where, fn = replaces[name]
@@ -943,7 +1511,8 @@ def main() -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
             "kernel_us": k["ms"] * 1e3, "plain_us": k["plain_ms"] * 1e3,
-            "library_us": k["library_ms"] * 1e3,
+            "library_us": (None if k["library_ms"] is None
+                           else k["library_ms"] * 1e3),
             "bound_us": k["bound_ms"] * 1e3, **extra})
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": line}))

@@ -26,10 +26,18 @@ module keeps the *semantics* of that pipeline and restructures the
    round's ``prev_global`` chains from the previous round's device
    tensor with no host round-trip.
 
-Torch port of ``repro.core.engine_compiled`` for ``shards=1``,
-``hosts=1`` and ``agg_mode="mean"``.  The reference runs a round as one
-``lax.scan`` dispatch; here it is one launch per schedule row (one
-launch or one CUDA graph per round is later work, ROADMAP.md).
+4. **Robust rounds** (DESIGN.md §11): ``agg_mode="norm_clip"`` scales
+   each packet's weight by ``tau / max(tau, ||row||)`` before the fold;
+   ``trimmed_mean`` and ``median`` rewrite the schedule to the combined
+   index ``slot*K + client`` with presence weight 1.0, fold it into an
+   ``(S*K, W)`` table (the scatter kernels on the card, one
+   ``index_add_`` on the CPU) and finalize with the rank-select kernel
+   (``kernels.packet_scatter.robust_finalize``).
+
+Torch port of ``repro.core.engine_compiled`` for ``shards=1`` and
+``hosts=1``.  The reference runs a round as one ``lax.scan`` dispatch;
+here it is one launch per schedule row (one launch or one CUDA graph
+per round is later work, ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -48,7 +56,10 @@ from repro_torch.core.protocol import Kind
 from repro_torch.core.server import (EngineConfig, EngineStats,  # noqa: F401
                                      QuorumError, RoundResult, check_quorum,
                                      downlink, fallback_global)
-from repro_torch.kernels.packet_scatter import packet_scatter_accum_rounds
+from repro_torch.kernels.packet_scatter import (norm_clip_weights,
+                                                packet_scatter_accum_rounds,
+                                                packet_table_scatter,
+                                                robust_finalize)
 
 # schedule rows are padded to a multiple of this, as in the reference
 # (where it is the TPU kernel's packet block), so both packages build
@@ -80,6 +91,10 @@ class DrainSchedule:
     scales: Optional[np.ndarray] = None    # (n_rows, B) f32 per-packet
                                            # q8 dequant scales (0 inert);
                                            # None on the f32 wire path
+    clients: Optional[np.ndarray] = None   # (n_rows, B) int32 sender per
+                                           # packet (-1 inert): the robust
+                                           # table's combined index needs
+                                           # it; None when untracked
 
 
 def build_drain_schedule(slots: np.ndarray, weights: np.ndarray,
@@ -87,7 +102,8 @@ def build_drain_schedule(slots: np.ndarray, weights: np.ndarray,
                          ring_capacity: int, ring_assign: str = "rr",
                          block_pkts: int = BLOCK_PKTS,
                          pad_batches: int = 8,
-                         scales: Optional[np.ndarray] = None
+                         scales: Optional[np.ndarray] = None,
+                         clients: Optional[np.ndarray] = None
                          ) -> DrainSchedule:
     """Vectorized replay of the eager engine's ring demux.
 
@@ -102,6 +118,7 @@ def build_drain_schedule(slots: np.ndarray, weights: np.ndarray,
     ``scales`` (n,) f32 marks a q8 round: payloads are then the int8
     wire rows and the schedule carries the per-packet scale column next
     to the weights (DESIGN.md §9); padding entries get scale 0.
+    ``clients`` (n,) int32 is carried the same way (padding -1).
     """
     n = int(slots.shape[0])
     W = int(payloads.shape[1])
@@ -113,7 +130,9 @@ def build_drain_schedule(slots: np.ndarray, weights: np.ndarray,
                              np.zeros((1, B, W), pk_dtype), 0, 0,
                              np.full((1,), -1, np.int64),
                              None if scales is None
-                             else np.zeros((1, B), np.float32))
+                             else np.zeros((1, B), np.float32),
+                             None if clients is None
+                             else np.full((1, B), -1, np.int32))
     if ring_assign == "slot":
         worker = slots.astype(np.int64) % n_workers
     else:
@@ -151,9 +170,13 @@ def build_drain_schedule(slots: np.ndarray, weights: np.ndarray,
     if scales is not None:
         sc = np.zeros((n_rows, B), np.float32)
         sc[row, col] = scales
+    cl = None
+    if clients is not None:
+        cl = np.full((n_rows, B), -1, np.int32)
+        cl[row, col] = clients
     row_worker = np.full(n_rows, -1, np.int64)
     row_worker[rank] = uniq // (n + 1)            # batch key -> its worker
-    return DrainSchedule(idx, w, pk, int(nb), n, row_worker, sc)
+    return DrainSchedule(idx, w, pk, int(nb), n, row_worker, sc, cl)
 
 
 def approx_lost_updates(sched: DrainSchedule, n_shards: int = 1
@@ -263,7 +286,7 @@ def demux_events(cfg: EngineConfig, events: Iterable,
             np.zeros(0, np.int32), np.zeros(0, np.float32),
             np.zeros((0, cfg.payload), np.float32),
             n_workers=cfg.n_workers, ring_capacity=cfg.ring_capacity,
-            ring_assign=cfg.ring_assign)
+            ring_assign=cfg.ring_assign, clients=np.zeros(0, np.int32))
         return sched, stats, up
     dc = np.asarray(d_c, np.int64)
     ds = np.asarray(d_s, np.int64)
@@ -328,7 +351,7 @@ def demux_events(cfg: EngineConfig, events: Iterable,
         ds[acc_rows].astype(np.int32), wts[dc[acc_rows]],
         pay, n_workers=cfg.n_workers,
         ring_capacity=cfg.ring_capacity, ring_assign=cfg.ring_assign,
-        scales=scales_col)
+        scales=scales_col, clients=dc[acc_rows].astype(np.int32))
     stats.batches_drained = sched.n_batches
     return sched, stats, up
 
@@ -342,7 +365,8 @@ def _round_device(total: torch.Tensor, counts: torch.Tensor,
                   sched_pk: torch.Tensor,
                   sched_scales: Optional[torch.Tensor], prev_global,
                   client_flats, down_mask, *, mode: str, payload: int,
-                  n_params: int, mix_alpha: float):
+                  n_params: int, mix_alpha: float, agg_clip: bool = False,
+                  clip_tau: float = 1.0):
     """One round on the device -> (total, counts, new_global,
     new_flats|None).
 
@@ -351,7 +375,12 @@ def _round_device(total: torch.Tensor, counts: torch.Tensor,
     then the END divide with per-slot fallback and, when
     ``down_mask`` is given, the TX downlink fallback.  On the q8 wire
     ``sched_pk`` is int8 and each row is decoded inside the kernel.
+    ``agg_clip`` (norm_clip mode) bounds each packet's weight first,
+    elementwise per packet, so the numbers match the eager drains.
     """
+    if agg_clip:
+        sched_w = norm_clip_weights(sched_w, sched_pk, tau=clip_tau,
+                                    scales=sched_scales)
     packet_scatter_accum_rounds(sched_idx, sched_w, sched_pk, total, counts,
                                 sched_scales=sched_scales,
                                 exact=(mode == "exact"))
@@ -364,6 +393,64 @@ def _round_device(total: torch.Tensor, counts: torch.Tensor,
     return total, counts, new_global, new_flats
 
 
+def _robust_round_device(sched_idx: torch.Tensor, sched_w: torch.Tensor,
+                         sched_pk: torch.Tensor,
+                         sched_scales: Optional[torch.Tensor], prev_global,
+                         client_flats, down_mask, *, payload: int,
+                         n_params: int, n_slots: int, n_clients: int,
+                         median: bool, beta: float, mix_alpha: float):
+    """Robust table round (trimmed mean / median, DESIGN.md §11) ->
+    (total, m, new_global, new_flats|None).
+
+    The schedule carries the combined index ``slot*K + client`` and
+    presence weight 1.0, so the fold writes each (slot, client) row of a
+    freshly zeroed ``(S*K, W)`` table exactly once, as ``0 + 1.0*row``:
+    on the card through the scatter kernels (one launch per schedule row,
+    always exact: rows that never collide cannot race), on the CPU with
+    one ``index_add_``; the bits are the same.  The table and its
+    presence feed the rank-select finalize; its per-slot contributor
+    count ``m`` takes the place of the mean path's counts (the same
+    fallback), and ``total`` is the table's per-slot sum.
+    """
+    S, K = n_slots, n_clients
+    dev = sched_idx.device
+    acc = torch.zeros((S * K, payload), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((S * K,), dtype=torch.float32, device=dev)
+    if dev.type == "cpu":
+        packet_table_scatter(sched_idx, sched_w, sched_pk, acc, cnt,
+                             sched_scales=sched_scales)
+    else:
+        packet_scatter_accum_rounds(sched_idx, sched_w, sched_pk, acc, cnt,
+                                    sched_scales=sched_scales, exact=True)
+    table = acc.view(S, K, payload)
+    agg, m = robust_finalize(table, cnt.view(S, K), median=median,
+                             beta=beta)
+    new_global = fallback_global(agg, m, prev_global, payload, n_params)
+    new_flats = None
+    if down_mask is not None:
+        new_flats = downlink(new_global, client_flats, down_mask, payload,
+                             n_params, mix_alpha)
+    return table.sum(dim=1), m, new_global, new_flats
+
+
+def _combined_table_sched(sched: DrainSchedule,
+                          n_clients: int) -> DrainSchedule:
+    """Rewrite a drain schedule for the robust table fold (§11): slot
+    index -> combined ``slot*K + client`` index, per-arrival FedAvg
+    weight -> presence weight 1.0 (rank statistics are unweighted).
+    Batch composition is untouched."""
+    if sched.clients is None:
+        raise ValueError("robust table modes need a client-tracked "
+                         "schedule")
+    valid = sched.idx >= 0
+    idx2 = np.where(valid,
+                    sched.idx.astype(np.int64) * n_clients
+                    + sched.clients.astype(np.int64),
+                    -1).astype(np.int32)
+    return dataclasses.replace(sched, idx=idx2,
+                               weights=valid.astype(np.float32))
+
+
 def dispatch_round(cfg: EngineConfig, sched: DrainSchedule, total, counts,
                    prev_global, client_flats=None, down_mask=None,
                    mix_alpha: float = 0.0):
@@ -372,7 +459,8 @@ def dispatch_round(cfg: EngineConfig, sched: DrainSchedule, total, counts,
     place (the reference donates them).
 
     Only the schedule's real rows are copied to the device: the padding
-    rows are inert.
+    rows are inert.  ``agg_mode`` trimmed_mean / median route through
+    the robust table round, which returns fresh ``(total, m)`` instead.
     """
     if cfg.mode not in ("exact", "approx"):
         raise ValueError(cfg.mode)
@@ -380,17 +468,26 @@ def dispatch_round(cfg: EngineConfig, sched: DrainSchedule, total, counts,
     if not cfg.use_kernel and dev.type != "cpu":
         raise ValueError("use_kernel=False (the sequential oracle) runs on "
                          "the CPU only")
+    robust_table = cfg.agg_mode in ("trimmed_mean", "median")
+    if robust_table:
+        sched = _combined_table_sched(sched, cfg.n_clients)
     nb = sched.n_batches
+    rows = lambda a: torch.from_numpy(a[:nb]).to(dev)
+    idx, w, pk = rows(sched.idx), rows(sched.weights), rows(sched.payloads)
+    sc = None if sched.scales is None else rows(sched.scales)
+    if robust_table:
+        return _robust_round_device(
+            idx, w, pk, sc, prev_global, client_flats, down_mask,
+            payload=cfg.payload, n_params=cfg.n_params,
+            n_slots=cfg.n_slots, n_clients=cfg.n_clients,
+            median=(cfg.agg_mode == "median"), beta=float(cfg.trim_beta),
+            mix_alpha=float(mix_alpha))
     return _round_device(
-        total, counts,
-        torch.from_numpy(sched.idx[:nb]).to(dev),
-        torch.from_numpy(sched.weights[:nb]).to(dev),
-        torch.from_numpy(sched.payloads[:nb]).to(dev),
-        None if sched.scales is None
-        else torch.from_numpy(sched.scales[:nb]).to(dev),
-        prev_global, client_flats, down_mask,
+        total, counts, idx, w, pk, sc, prev_global, client_flats, down_mask,
         mode=cfg.mode, payload=cfg.payload, n_params=cfg.n_params,
-        mix_alpha=float(mix_alpha))
+        mix_alpha=float(mix_alpha),
+        agg_clip=(cfg.agg_mode == "norm_clip"),
+        clip_tau=float(cfg.clip_tau))
 
 
 # ---------------------------------------------------------------------------

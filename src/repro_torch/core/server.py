@@ -9,11 +9,13 @@ events — lossy, out-of-order, duplicated — and drives the device-side
 scatter-accumulate (kernels/packet_scatter.py) through a
 ``StreamingAggregator`` once per drained ring batch.
 
-Torch port of ``repro.core.server`` for the synchronous mean round
-(``agg_mode="mean"``, ``shards=1``, ``hosts=1``, no async buffer).  The
-host logic (FSM gate, dedup, deadline and quorum close, ring demux) is
-the reference's, line for line; the device state lives in torch tensors
-on the engine's device.  Semantics (DESIGN.md §3):
+Torch port of ``repro.core.server`` for the synchronous round
+(``shards=1``, ``hosts=1``, no async buffer) in every ``agg_mode``: the
+mean, and the Byzantine-robust trimmed mean, median and norm clip
+(DESIGN.md §11).  The host logic (FSM gate, dedup, deadline and quorum
+close, ring demux) is the reference's, line for line; the device state
+lives in torch tensors on the engine's device.  Semantics (DESIGN.md
+§3):
 
 - **RX** answers control packets through the per-round ``ServerFSM`` and
   deduplicates DATA packets against the FSM's uplink sets, so the
@@ -22,7 +24,9 @@ on the engine's device.  Semantics (DESIGN.md §3):
 - **Workers** drain a ring when it reaches capacity; each drained batch
   is one scatter-accumulate launch.
 - **END** divides by the counts, with per-packet fallback to the
-  previous global for slots nobody delivered (§3.2.2).
+  previous global for slots nobody delivered (§3.2.2).  The robust
+  table modes keep a per-slot client table beside the rings and
+  finalize it with the rank-select kernel instead.
 - **TX** applies the downlink mask with the client-side fallback (§3.1).
 
 Invariants the tests hold against the reference: bitwise parity on
@@ -44,7 +48,8 @@ from repro_torch.core.device import as_tensor, host_array, resolve_device
 from repro_torch.core.packets import PacketizedShape, depacketize
 from repro_torch.core.pipeline import StreamingAggregator
 from repro_torch.core.protocol import Kind, Packet, ServerFSM, ServerPhase
-from repro_torch.kernels.packet_scatter import MAX_BATCH
+from repro_torch.kernels import ops as _ops
+from repro_torch.kernels.packet_scatter import MAX_BATCH, norm_clip_weights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +78,7 @@ class EngineConfig:
     staleness_mode: str = "const"      # const | poly | norm (async)
     staleness_alpha: float = 0.5       # poly/norm decay exponent (async)
     norm_clip: float = 1.0             # norm-mode screening threshold
-    agg_mode: str = "mean"             # only "mean" is ported
+    agg_mode: str = "mean"             # mean|trimmed_mean|median|norm_clip
     trim_beta: float = 0.1             # trimmed_mean: fraction per side
     clip_tau: float = 1.0              # norm_clip influence bound
 
@@ -110,11 +115,21 @@ class EngineConfig:
         if self.clip_tau <= 0:
             raise ValueError(
                 f"clip_tau must be > 0, got {self.clip_tau}")
-        if self.buffer_size is not None and self.buffer_size < 1:
-            raise ValueError(
-                f"buffer_size must be >= 1, got {self.buffer_size}")
+        if self.buffer_size is not None:
+            if self.buffer_size < 1:
+                raise ValueError(
+                    f"buffer_size must be >= 1, got {self.buffer_size}")
+            if self.round_deadline is not None or self.min_clients:
+                raise ValueError(
+                    "async buffered mode has no round barrier: "
+                    "round_deadline / min_clients do not apply "
+                    "(DESIGN.md §10)")
+            if self.agg_mode in ("trimmed_mean", "median"):
+                raise ValueError(
+                    "trimmed_mean/median need the synchronous round's "
+                    "per-slot client table; async buffered mode "
+                    "supports agg_mode mean|norm_clip (DESIGN.md §11)")
         for name, value, ported in (
-                ("agg_mode", self.agg_mode, "mean"),
                 ("shards", self.shards, 1),
                 ("hosts", self.hosts, 1),
                 ("buffer_size", self.buffer_size, None),
@@ -243,6 +258,19 @@ class ServerEngine:
         self._pend_payloads: List[np.ndarray] = []
         self._pend_q8: List[bool] = []       # wire_dtype per arrival
         self._pend_scales: List[float] = []  # q8 dequant scale (DESIGN.md §9)
+        self._pend_clients: List[int] = []   # robust table row (DESIGN.md §11)
+        # robust table modes (DESIGN.md §11): the eager engine keeps the
+        # per-slot client table on the host, one deduplicated decoded row
+        # per (slot, client), beside the rings (which still drain, for
+        # stats that match the compiled schedule's, but fold nothing)
+        if cfg.agg_mode in ("trimmed_mean", "median") and not cfg.compile:
+            self._tab = np.zeros((cfg.n_slots, cfg.n_clients, cfg.payload),
+                                 np.float32)
+            self._tab_mask = np.zeros((cfg.n_slots, cfg.n_clients),
+                                      np.float32)
+        else:
+            self._tab = None
+            self._tab_mask = None
         self._events_seen = 0
         self._deadline_fired = False
         self.stats = EngineStats()
@@ -293,6 +321,7 @@ class ServerEngine:
             self._pend_payloads.append(payload)
             self._pend_q8.append(packet.wire_dtype != "f32")
             self._pend_scales.append(packet.scale)
+            self._pend_clients.append(c)
             self.stats.data_enqueued += 1
             return []
         if self.cfg.ring_assign == "slot":
@@ -307,6 +336,9 @@ class ServerEngine:
                    * np.float32(packet.scale))
         else:
             row = np.asarray(payload, np.float32)
+        if self._tab is not None:         # robust table modes (§11)
+            self._tab[slot, c] = row
+            self._tab_mask[slot, c] = 1.0
         ring = self._rings[worker]
         ring.append((slot, float(self.weights[c]), row))
         self.stats.data_enqueued += 1
@@ -320,11 +352,21 @@ class ServerEngine:
         if not ring:
             return
         self._rings[worker] = []
+        self.stats.batches_drained += 1
+        if self._tab is not None:
+            # robust table modes: the table already holds every row, and
+            # the finalize never reads the mean accumulator, so a drain
+            # only counts its batch (the stats match the compiled ones)
+            return
         idx = np.array([s for s, _, _ in ring], np.int32)
         w = np.array([wt for _, wt, _ in ring], np.float32)
-        payloads = np.stack([p for _, _, p in ring])
+        payloads = as_tensor(np.stack([p for _, _, p in ring]), self.device)
+        if self.cfg.agg_mode == "norm_clip":
+            # per-packet influence bound, elementwise per packet: the
+            # compiled schedule computes the same bits
+            w = norm_clip_weights(as_tensor(w, self.device), payloads,
+                                  tau=self.cfg.clip_tau)
         self.agg.scatter_add(payloads, idx, weights=w, mode=self.cfg.mode)
-        self.stats.batches_drained += 1
 
     def flush(self) -> None:
         """Drain every ring (the workers' post-END cleanup pass)."""
@@ -352,13 +394,29 @@ class ServerEngine:
 
         Slots with count 0 keep the previous round's global value.  With
         ``cfg.compile`` the recorded arrivals are demuxed into one drain
-        schedule and folded by ``engine_compiled.dispatch_round``.
+        schedule and folded by ``engine_compiled.dispatch_round``.  The
+        robust table modes finalize the client table with the
+        rank-select kernel and return its per-slot contributor count in
+        place of the counts; client weights do not enter (rank
+        statistics are unweighted).
         """
         self._close_round()
         if self.cfg.compile:
             new_global, counts, _ = self._finalize_compiled(prev_global)
             return new_global, counts
         self.flush()
+        if self._tab is not None:
+            agg, m = _ops.robust_finalize(
+                torch.from_numpy(self._tab).to(self.device),
+                torch.from_numpy(self._tab_mask).to(self.device),
+                median=(self.cfg.agg_mode == "median"),
+                beta=self.cfg.trim_beta)
+            # on the CPU the tensors above share the host table's memory:
+            # clear it only once the finalize has read it
+            self._tab[...] = 0.0
+            self._tab_mask[...] = 0.0
+            return fallback_global(agg, m, prev_global, self.cfg.payload,
+                                   self.cfg.n_params), m
         new_global = fallback_global(self.agg.finalize(), self.agg.counts,
                                      prev_global, self.cfg.payload,
                                      self.cfg.n_params)
@@ -405,9 +463,10 @@ class ServerEngine:
             pay,
             n_workers=self.cfg.n_workers,
             ring_capacity=self.cfg.ring_capacity,
-            ring_assign=self.cfg.ring_assign, scales=scales)
+            ring_assign=self.cfg.ring_assign, scales=scales,
+            clients=np.asarray(self._pend_clients, np.int32))
         self._pend_slots, self._pend_weights, self._pend_payloads = [], [], []
-        self._pend_q8, self._pend_scales = [], []
+        self._pend_q8, self._pend_scales, self._pend_clients = [], [], []
         total, counts, new_global, new_flats = ec.dispatch_round(
             self.cfg, sched, self.agg.total, self.agg.counts, prev_global,
             client_flats=client_flats, down_mask=down_mask,

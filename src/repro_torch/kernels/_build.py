@@ -82,13 +82,15 @@ def load(name: str) -> KernelLibrary:
     return KernelLibrary(lib, so, seconds, log, name)
 
 
-def declare(lib: ctypes.CDLL, fn: str, n_ptr: int, n_int: int) -> None:
-    """``fn(ptr * n_ptr, int * n_int, stream) -> int``: the shape of every
-    launch function in ``csrc/``.  Pointers (and the stream) must be
-    ``c_void_p``, or ctypes passes them as 32-bit ints."""
+def declare(lib: ctypes.CDLL, fn: str, n_ptr: int, n_int: int,
+            n_float: int = 0) -> None:
+    """``fn(ptr * n_ptr, int * n_int, float * n_float, stream) -> int``:
+    the shape of every launch function in ``csrc/``.  Pointers (and the
+    stream) must be ``c_void_p``, or ctypes passes them as 32-bit ints;
+    a ``c_float`` argument rounds a Python float to f32 as numpy does."""
     f = getattr(lib, fn)
     f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                  + [ctypes.c_void_p])
+                  + [ctypes.c_float] * n_float + [ctypes.c_void_p])
     f.restype = ctypes.c_int
 
 

@@ -10,8 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import fedavg_accum as _fa
-from repro_torch.kernels.packet_scatter import \
-    packet_scatter_accum as _packet_scatter_accum_kernel
+from repro_torch.kernels import packet_scatter as _ps
 from repro_torch.kernels.quantized_accum import \
     quantized_accum as _quantized_accum_kernel
 
@@ -69,5 +68,25 @@ def packet_scatter_accum(packets, idx, acc, counts, weights,
     """
     if mode not in ("exact", "approx"):
         raise ValueError(mode)
-    return _packet_scatter_accum_kernel(packets, idx, weights, acc, counts,
-                                        exact=(mode == "exact"))
+    return _ps.packet_scatter_accum(packets, idx, weights, acc, counts,
+                                   exact=(mode == "exact"))
+
+
+def packet_scatter(packets, idx, n_slots: int, init=None):
+    """Place packets (N, W) at rows idx (N,) of a (n_slots, W) buffer.
+
+    ``init`` (default zeros) is the destination, updated in place where
+    the reference aliases it onto the output: uncovered rows keep its
+    contents; duplicated idx resolve last-writer-wins.
+    """
+    return _ps.packet_scatter(packets.contiguous(),
+                              idx.to(torch.int32).contiguous(), n_slots,
+                              init)
+
+
+def robust_finalize(table, pres, median: bool = False, beta: float = 0.1):
+    """Trimmed-mean / median finalize: table (S, K, W) + presence (S, K)
+    -> (agg (S, W), m (S,)).  The reference pads S to its slot block; the
+    CUDA kernel takes any S."""
+    return _ps.robust_finalize(_f32(table), _f32(pres), median=median,
+                               beta=beta)

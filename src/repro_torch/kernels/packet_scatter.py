@@ -21,12 +21,23 @@ Each function comes in three forms:
   They update ``acc`` and ``counts`` in place, where the JAX package
   aliases (donates) them.
 - ``packet_scatter_accum_plain`` / ``packet_scatter_accum_q8_plain``:
-  plain PyTorch with the reference's dataflow
-  (``repro.kernels.packet_scatter.packet_scatter_accum_batch_jnp`` and
-  its q8 twin): a one-hot (S x N) routing matrix, a matmul, and a
-  last-column select for approx mode.
+  plain PyTorch with the kernel's arithmetic in the kernel's order
+  (a slot's hits summed in packet order, then added once), so the two
+  agree bit for bit on any payload.  The reference's jnp twin
+  (``packet_scatter_accum_batch_jnp``) routes through a one-hot (S x N)
+  matmul instead; the sums agree wherever they are exact.
 - ``packet_scatter_accum_rounds``: a whole round's drain schedule, one
   launch per schedule row on the current stream, no host sync.
+
+The Byzantine-robust modes (DESIGN.md §11) add, in the same forms:
+
+- ``robust_finalize`` / ``robust_finalize_plain``: the trimmed-mean and
+  coordinate-wise-median finalize over the per-slot client table
+  (kernel ``csrc/robust_finalize.cu``); ``norm_clip_weights``, the
+  per-packet influence bound; ``packet_table_scatter``, the CPU fold of
+  a robust round's unique-index table schedule.
+- ``packet_scatter`` / ``packet_scatter_plain``: placement of packets at
+  their index rows, last writer wins (kernel ``csrc/packet_place.cu``).
 """
 from __future__ import annotations
 
@@ -47,28 +58,68 @@ MAX_BATCH = 2048
 # Plain PyTorch versions (the CPU path, and the yardstick on the card)
 # ---------------------------------------------------------------------------
 
+def _hit_order(idx: torch.Tensor, n_slots: int):
+    """The real entries of a batch (``0 <= idx < n_slots``) in packet
+    order -> (positions, their slots, each one's rank among the earlier
+    hits of its slot): the order in which the kernel folds a slot's
+    hits."""
+    slot = idx.to(torch.int64)
+    pos = torch.nonzero((slot >= 0) & (slot < n_slots)).flatten()
+    s = slot[pos]
+    srt, perm = torch.sort(s, stable=True)
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[1:] = srt[1:] != srt[:-1]
+    at = torch.arange(srt.numel(), device=idx.device)
+    start = torch.cummax(torch.where(first, at, 0), dim=0).values
+    rank = torch.empty_like(at)
+    rank[perm] = at - start
+    return pos, s, rank
+
+
 def packet_scatter_accum_plain(packets: torch.Tensor, idx: torch.Tensor,
                                weights: torch.Tensor, acc: torch.Tensor,
                                counts: torch.Tensor, *, exact: bool = True):
     """One drained batch: packets (N, W), idx (N,) slot rows (outside
     ``[0, S)`` = inert), weights (N,), acc (S, W), counts (S,) ->
-    new (acc', counts').  Functional: the inputs are not modified."""
-    S, N = acc.shape[0], idx.shape[0]
-    rows = torch.arange(S, device=acc.device)[:, None]
-    hits = idx.to(torch.int64)[None, :] == rows            # (S, N)
-    w = weights.to(torch.float32)[None, :]                # (1, N)
-    whot = hits.to(torch.float32) * w
-    counts = counts + whot.sum(dim=1)
-    pkt = packets.to(torch.float32)
+    new (acc', counts').  Functional: the inputs are not modified.
+
+    The kernel's arithmetic in the kernel's order: a slot's hits are
+    summed in packet order from 0 (``w * x`` each, then added), and the
+    sum is added to the slot's row once; the counts likewise.  Approx
+    mode adds only the last hit with a positive weight.  So the kernel
+    and this version agree bit for bit on any payload and weights.
+    """
+    S, W = acc.shape
+    pos, s, rank = _hit_order(idx, S)
+    w = weights.to(torch.float32)[pos]
+    pkt = packets.to(torch.float32)[pos]
+    slots, group = torch.unique(s, return_inverse=True)
+    c_sum = torch.zeros(slots.shape, dtype=torch.float32, device=acc.device)
+    p_sum = torch.zeros((slots.numel(), W), dtype=torch.float32,
+                        device=acc.device)
+    n_rank = int(rank.max()) + 1 if rank.numel() else 0
+    for j in range(n_rank):          # the j-th hit of every slot at once
+        sel = rank == j
+        g = group[sel]
+        c_sum[g] = c_sum[g] + w[sel]
+        if exact:
+            p_sum[g] = p_sum[g] + w[sel, None] * pkt[sel]
+    counts = counts.clone()
+    counts[slots] = counts[slots] + c_sum
+    acc = acc.clone()
     if exact:
-        return acc + whot @ pkt, counts
-    valid = hits & (w > 0)
-    colpos = torch.arange(1, N + 1, device=acc.device)[None, :]
-    lastcol = torch.where(valid, colpos, 0).amax(dim=1, keepdim=True)
-    lasthot = (colpos == lastcol) & valid
-    contrib = (lasthot.to(torch.float32) * w) @ pkt
-    # ``acc`` is the call-entry snapshot: the deterministic race
-    return torch.where(lastcol > 0, acc + contrib, acc), counts
+        acc[slots] = acc[slots] + p_sum
+        return acc, counts
+    # approx: the last hit with a positive weight wins the race; ``acc``
+    # is the call-entry snapshot
+    live = w > 0
+    last = torch.full(slots.shape, -1, dtype=torch.int64, device=acc.device)
+    at = torch.arange(pos.numel(), device=acc.device)
+    last.scatter_reduce_(0, group[live], at[live], reduce="amax")
+    won = last >= 0
+    lw = last[won]
+    acc[slots[won]] = acc[slots[won]] + w[lw, None] * pkt[lw]
+    return acc, counts
 
 
 def packet_scatter_accum_q8_plain(packets: torch.Tensor, scales: torch.Tensor,
@@ -256,3 +307,251 @@ def packet_scatter_accum_rounds(sched_idx: torch.Tensor,
             _launch_f32(p_pk + r * pk_row, p_idx + r * row4, p_w + r * row4,
                         p_acc, p_cnt, B, W, S, exact, stream)
     return acc, counts
+
+
+# ---------------------------------------------------------------------------
+# Byzantine-robust modes (DESIGN.md §11): norm clip, table fold, finalize
+# ---------------------------------------------------------------------------
+
+_F32_MAX = torch.finfo(torch.float32).max
+
+
+def _row_sumsq(r: torch.Tensor) -> torch.Tensor:
+    """Sum of squares over the last axis in one fixed order: the squares
+    are zero-padded to a power-of-two width and halved pairwise.  Every
+    step is elementwise, so a row gives the same bits whatever the
+    leading shape and on either device; a library reduction may change
+    its order with the tensor's shape (the eager engine folds (B, W)
+    batches, the compiled one (R, B, W) schedules)."""
+    sq = r * r
+    n = sq.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width > n:
+        sq = torch.nn.functional.pad(sq, (0, width - n))
+    while sq.shape[-1] > 1:
+        half = sq.shape[-1] // 2
+        sq = sq[..., :half] + sq[..., half:]
+    return sq[..., 0]
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root of ``x >= 0`` on either
+    device.  ``torch.sqrt`` on f32 CPU tensors may run through a vector
+    math library accurate to about an ulp (sqrt(15698.1875) came out one
+    ulp below the IEEE root that the card and numpy return).  The root
+    taken in f64 and rounded to f32 is correctly rounded: 53 >= 2*24 + 2
+    bits, so the double rounding cannot move it."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def norm_clip_weights(weights: torch.Tensor, rows: torch.Tensor, *,
+                      tau: float,
+                      scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-packet norm-clipped FedAvg weight (DESIGN.md §11).
+
+    weights (...,) base per-arrival weights; rows (..., W) payload rows;
+    on the q8 wire ``scales`` (...,) so the norm is taken over the
+    dequantized rows.  Returns ``w * tau / max(tau, ||row||_2)`` in f32:
+    a row inside the ball keeps its weight exactly, a longer one is
+    shrunk to norm ``tau``.  Elementwise per packet, with the norm
+    summed in ``_row_sumsq``'s fixed order and its root correctly
+    rounded, so the eager and the compiled engine, on the CPU or the
+    card, get the same bits; inert padding (weight 0) stays inert.
+    """
+    w = weights.to(torch.float32)
+    r = rows.to(torch.float32)
+    if scales is not None:
+        r = r * scales.to(torch.float32)[..., None]
+    nrm = _sqrt_rn(_row_sumsq(r))
+    t = torch.tensor(tau, dtype=torch.float32, device=w.device)
+    return w * (t / torch.maximum(t, nrm))
+
+
+def packet_table_scatter(sched_idx: torch.Tensor, sched_w: torch.Tensor,
+                         sched_pk: torch.Tensor, acc: torch.Tensor,
+                         cnt: torch.Tensor, *,
+                         sched_scales: Optional[torch.Tensor] = None):
+    """Fold a *unique-index* drain schedule into ``(acc, cnt)`` in place
+    with one ``index_add_`` (the robust table fold on the CPU).
+
+    A robust round's combined ``slot*K + client`` indices hit each row of
+    the ``(S*K, W)`` table at most once (dedup upstream), so the add
+    order cannot matter: every real row lands as ``0 + w*payload``, the
+    same bits as folding the schedule row by row.  Entries with
+    ``idx < 0`` (padding) or ``idx >= len(acc)`` are inert.
+    """
+    W = acc.shape[1]
+    idx = sched_idx.reshape(-1).to(torch.int64)
+    w = sched_w.reshape(-1).to(torch.float32)
+    pk = sched_pk.reshape(-1, W).to(torch.float32)
+    if sched_scales is not None:
+        pk = pk * sched_scales.reshape(-1).to(torch.float32)[:, None]
+    real = (idx >= 0) & (idx < acc.shape[0])
+    acc.index_add_(0, idx[real], w[real, None] * pk[real])
+    cnt.index_add_(0, idx[real], w[real])
+    return acc, cnt
+
+
+def _robust_trim(m: torch.Tensor, *, median: bool, beta: float
+                 ) -> torch.Tensor:
+    """Per-slot trim depth from the contributor count m, in f32: the
+    trimmed mean drops ``floor(f32(m) * f32(beta))`` ranks from each end,
+    the median keeps the middle rank or pair, ``floor((m - 1) / 2)``."""
+    m = m.to(torch.float32)
+    if median:
+        t = torch.floor((m - 1.0) * 0.5)
+    else:
+        t = torch.floor(m * torch.tensor(beta, dtype=torch.float32,
+                                         device=m.device))
+    return torch.clamp_min(t, 0.0)
+
+
+def robust_finalize_plain(table: torch.Tensor, pres: torch.Tensor, *,
+                          median: bool = False, beta: float = 0.1):
+    """Plain PyTorch version of the robust finalize kernel: the same
+    rank-select in the same order.
+
+    table (S, K, W) f32 per-slot client table; pres (S, K) f32 (> 0 =
+    present).  Each present value is ranked by the present values below
+    it (absent entries sit at a FLT_MAX sentinel; ties go by client
+    order), ranks in ``[t, m - t)`` are kept and summed in client order
+    from 0, and the sum is divided by the kept count.  -> ``(agg (S, W),
+    m (S,))``, agg 0 where no value was kept.  The reference's jnp twin
+    sums in sorted order instead, so the two agree bit for bit only where
+    the sums are exact (integer payloads).
+    """
+    S, K, W = table.shape
+    p = pres > 0
+    m = p.to(torch.float32).sum(dim=1)
+    t = _robust_trim(m, median=median, beta=beta)[:, None]
+    hi = m[:, None] - t
+    vm = torch.where(p[:, :, None], table.to(torch.float32), _F32_MAX)
+    kiota = torch.arange(K, device=table.device)[None, :, None]
+    ssum = torch.zeros((S, W), dtype=torch.float32, device=table.device)
+    kept = torch.zeros((S, W), dtype=torch.float32, device=table.device)
+    for k in range(K):
+        vk = vm[:, k:k + 1, :]
+        below = (vm < vk) | ((vm == vk) & (kiota < k))
+        rank = below.sum(dim=1).to(torch.float32)
+        keep = p[:, k, None] & (rank >= t) & (rank < hi)
+        ssum = ssum + torch.where(keep, vm[:, k], 0.0)
+        kept = kept + keep.to(torch.float32)
+    agg = torch.where(kept > 0, ssum / torch.clamp_min(kept, 1e-12), 0.0)
+    return agg, m
+
+
+@functools.cache
+def load_robust_library() -> _build.KernelLibrary:
+    """Build ``csrc/robust_finalize.cu`` (once per source hash), load it."""
+    built = _build.load("robust_finalize")
+    _build.declare(built.lib, "robust_finalize_f32", 4, 4, 1)
+    return built
+
+
+def robust_finalize(table: torch.Tensor, pres: torch.Tensor, *,
+                    median: bool = False, beta: float = 0.1):
+    """Trimmed-mean (``beta`` per side) or median finalize of a per-slot
+    client table: table (S, K, W) f32, pres (S, K) f32 -> ``(agg (S, W),
+    m (S,))``.  CUDA tensors launch ``csrc/robust_finalize.cu`` and count
+    the launch in ``robust_finalize.launches``; CPU tensors run
+    ``robust_finalize_plain``."""
+    if not isinstance(table, torch.Tensor) or table.dim() != 3:
+        raise ValueError("table must be an (S, K, W) tensor")
+    S, K, W = table.shape
+    dev = table.device
+    _build.check_tensor("table", table, torch.float32, (S, K, W), dev)
+    _build.check_tensor("pres", pres, torch.float32, (S, K), dev)
+    if dev.type == "cpu":
+        return robust_finalize_plain(table, pres, median=median, beta=beta)
+    if dev.type != "cuda":
+        raise ValueError(f"no robust_finalize kernel for {dev}")
+    agg = torch.empty((S, W), dtype=torch.float32, device=dev)
+    m = torch.empty((S,), dtype=torch.float32, device=dev)
+    lib = load_robust_library()
+    lib.check(lib.lib.robust_finalize_f32(
+        table.data_ptr(), pres.data_ptr(), agg.data_ptr(), m.data_ptr(), S, K,
+        W, int(median), float(beta), _build.stream(dev)), "robust_finalize")
+    robust_finalize.launches += 1
+    return agg, m
+
+
+robust_finalize.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Placement: out[idx[n]] = packets[n], last writer wins
+# ---------------------------------------------------------------------------
+
+def packet_scatter_plain(packets: torch.Tensor, idx: torch.Tensor,
+                         n_slots: int, init: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of the placement kernel: the same two steps.
+    The last packet naming a row is found with an integer max, then each
+    such packet writes its row.  Rows no packet covers keep ``init``
+    (zeros without it); idx outside ``[0, n_slots)`` is inert.
+    Functional: ``init`` is not modified."""
+    N, W = packets.shape
+    dev = packets.device
+    out = (torch.zeros((n_slots, W), dtype=packets.dtype, device=dev)
+           if init is None else init.clone())
+    idx = idx.to(torch.int64)
+    valid = (idx >= 0) & (idx < n_slots)
+    pos = torch.arange(N, device=dev)
+    last = torch.full((n_slots,), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(0, idx[valid], pos[valid], reduce="amax")
+    win = valid.clone()
+    win[valid] = last[idx[valid]] == pos[valid]
+    out[idx[win]] = packets[win]
+    return out
+
+
+@functools.cache
+def load_place_library() -> _build.KernelLibrary:
+    """Build ``csrc/packet_place.cu`` (once per source hash), load it."""
+    built = _build.load("packet_place")
+    _build.declare(built.lib, "packet_place", 4, 4)
+    return built
+
+
+def packet_scatter(packets: torch.Tensor, idx: torch.Tensor, n_slots: int,
+                   init: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Place packets (N, W) at rows idx (N,) int32 of an (n_slots, W)
+    buffer -> the buffer.
+
+    ``init`` (n_slots, W) of the packets' type is the destination and is
+    updated in place (the reference aliases it onto the output); without
+    it the buffer starts at zeros.  Uncovered rows keep their contents,
+    duplicates resolve last-writer-wins in packet order, and idx outside
+    ``[0, n_slots)`` is inert.  CUDA tensors launch
+    ``csrc/packet_place.cu`` and count the launch in
+    ``packet_scatter.launches``; CPU tensors run
+    ``packet_scatter_plain``.
+    """
+    if not isinstance(packets, torch.Tensor) or packets.dim() != 2:
+        raise ValueError("packets must be an (N, W) tensor")
+    N, W = packets.shape
+    dev = packets.device
+    _build.check_tensor("packets", packets, packets.dtype, (N, W), dev)
+    _build.check_tensor("idx", idx, torch.int32, (N,), dev)
+    if init is not None:
+        _build.check_tensor("init", init, packets.dtype, (n_slots, W), dev)
+    if dev.type == "cpu":
+        out = packet_scatter_plain(packets, idx, n_slots, init)
+        if init is None:
+            return out
+        return init.copy_(out)
+    if dev.type != "cuda":
+        raise ValueError(f"no packet_scatter kernel for {dev}")
+    out = (torch.zeros((n_slots, W), dtype=packets.dtype, device=dev)
+           if init is None else init)
+    last = torch.full((n_slots,), -1, dtype=torch.int32, device=dev)
+    lib = load_place_library()
+    lib.check(lib.lib.packet_place(
+        packets.data_ptr(), idx.data_ptr(), last.data_ptr(), out.data_ptr(),
+        N, W, n_slots, packets.element_size(), _build.stream(dev)),
+        "packet_scatter")
+    packet_scatter.launches += 1
+    return out
+
+
+packet_scatter.launches = 0

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions,
-on the card.  Marked ``gpu``: without a CUDA device every test skips
+on the card, and the port's rounds on the card against the same rounds
+on the CPU.  Marked ``gpu``: without a CUDA device every test skips
 (the decision is made in a fixture, so every worker collects the same
 tests).  Run on a GPU machine with
 
@@ -18,6 +19,7 @@ import torch
 from repro_torch.configs.paper_cnn import CNNConfig
 from repro_torch.core import aggregation as agg
 from repro_torch.core import engine_compiled as ec
+from repro_torch.core import rounds
 from repro_torch.core import server
 from repro_torch.core.fedavg import FedAvgConfig, ModelFns, run_fedavg
 from repro_torch.core.packets import quantize_payload
@@ -88,8 +90,9 @@ def test_kernel_matches_plain(cuda, q8, exact, integer):
     torch.cuda.synchronize()
     assert out[0] is a and out[1] is c
     assert counter.launches == before + 1
-    tol = dict(rtol=0, atol=0) if integer else dict(rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(a, want[0], **tol)
+    # the plain version sums a slot's hits in the kernel's order: bitwise
+    # on Gaussian payloads too
+    torch.testing.assert_close(a, want[0], rtol=0, atol=0)
     torch.testing.assert_close(c, want[1], rtol=0, atol=0)
 
 
@@ -286,3 +289,141 @@ def test_run_fedavg_on_the_card(cuda, mode):
     assert rise == {"exact": (3, 0), "int8": (0, 3), "approx": (0, 0)}[mode]
     assert np.isfinite(h["test_loss"]).all()
     assert h["test_loss"][-1] < h["test_loss"][0]
+
+
+# ---------------------------------------------------------------------------
+# The robust finalize (kernel 5) and placement (kernel 6)
+# ---------------------------------------------------------------------------
+
+def _table(seed, dev, S, k, width, integer):
+    rng = np.random.default_rng(seed)
+    tab = (rng.integers(-4, 5, (S, k, width)) if integer
+           else rng.normal(size=(S, k, width))).astype(np.float32)
+    pres = (rng.random((S, k)) < 0.7).astype(np.float32)
+    pres[0] = 0.0
+    pres[1] = 1.0
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return t(tab * pres[:, :, None]), t(pres)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 10, 33])
+@pytest.mark.parametrize("median,beta", [(False, 0.2), (True, 0.0),
+                                         (False, 0.35)])
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "gauss"])
+def test_robust_finalize_matches_plain(cuda, k, median, beta, integer):
+    """Bitwise on any payload: the kernel and its plain version rank and
+    sum in one order (register path up to K=32, global memory above)."""
+    tab, pres = _table(k, cuda, 41, k, 67, integer)
+    want = ps.robust_finalize_plain(tab, pres, median=median, beta=beta)
+    before = ps.robust_finalize.launches
+    got = ps.robust_finalize(tab, pres, median=median, beta=beta)
+    torch.cuda.synchronize()
+    assert ps.robust_finalize.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_robust_finalize_trims_in_f32(cuda):
+    """m=180, beta=0.35: the trim depth is floor(f32(180) * f32(0.35)) =
+    63 (f64 gives 62)."""
+    rng = np.random.default_rng(7)
+    tab = rng.integers(-50, 51, (3, 180, 16)).astype(np.float32)
+    got, m = ps.robust_finalize(torch.from_numpy(tab).to(cuda),
+                                torch.ones((3, 180), device=cuda), beta=0.35)
+    want = np.sort(tab, axis=1)[:, 63:117].mean(axis=1)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert (m == 180).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("with_init", [False, True], ids=["zeros", "init"])
+def test_packet_scatter_matches_plain(cuda, dtype, with_init):
+    rng = np.random.default_rng(8)
+    n, slots, width = 300, 257, 131
+    idx = rng.integers(0, slots, n).astype(np.int32)
+    idx[:4] = -1
+    idx[4] = slots + 2                              # inert
+    pk = torch.from_numpy(rng.normal(size=(n, width)).astype(np.float32) * 9)
+    pk = pk.to(dtype).to(cuda)
+    it = torch.from_numpy(idx).to(cuda)
+    init = (torch.from_numpy(rng.normal(size=(slots, width)).astype(
+        np.float32)).to(dtype).to(cuda) if with_init else None)
+    want = ps.packet_scatter_plain(pk, it, slots, init)
+    before = ps.packet_scatter.launches
+    buf = None if init is None else init.clone()
+    got = ps.packet_scatter(pk, it, slots, buf)
+    torch.cuda.synchronize()
+    assert ps.packet_scatter.launches == before + 1
+    assert buf is None or got is buf
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("agg", ["trimmed_mean", "median", "norm_clip"])
+@pytest.mark.parametrize("wire", ["f32", "q8"])
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "gauss"])
+def test_robust_round_on_the_card_matches_the_cpu(cuda, agg, wire, integer):
+    """Eager and compiled, on the card and on the CPU: one result, bit
+    for bit, on any payload (the kernels and their plain versions share
+    every order of operations)."""
+    K, P, Wp = 5, 2000, 64
+    rng = np.random.default_rng(4)
+    Np = -(-P // Wp)
+    flats = (rng.integers(-8, 9, (K, P)) if integer
+             else rng.normal(size=(K, P))).astype(np.float32)
+    prev = rng.integers(-8, 9, P).astype(np.float32)
+    down = (rng.random((K, Np)) > 0.1).astype(np.float32)
+    weights = rng.integers(1, 4, K).astype(np.float32)
+    if wire == "q8":
+        pk = rng.integers(-127, 128, (K, Np, Wp)).astype(np.int8)
+        scales = ((2.0 ** rng.integers(-4, 1, (K, Np))) if integer
+                  else rng.uniform(1e-3, 1e-1, (K, Np))).astype(np.float32)
+    else:
+        pk = np.zeros((K, Np * Wp), np.float32)
+        pk[:, :P] = flats
+        pk, scales = pk.reshape(K, Np, Wp), None
+    events, _ = server.make_uplink_stream(rng, pk, loss_rate=0.1,
+                                          dup_rate=0.2, scales=scales)
+    res = {}
+    before = ps.robust_finalize.launches
+    for dev in ("cpu", cuda):
+        for compiled in (False, True):
+            cfg = server.EngineConfig(n_clients=K, n_params=P, payload=Wp,
+                                      ring_capacity=16, compile=compiled,
+                                      agg_mode=agg, trim_beta=0.2,
+                                      clip_tau=20.0)
+            res[(str(dev), compiled)] = server.run_engine_round(
+                cfg, flats, prev, events, down_mask=down, weights=weights,
+                device=dev)
+    torch.cuda.synchronize()
+    table_modes = agg != "norm_clip"
+    assert ps.robust_finalize.launches == before + 2 * table_modes
+    base = res[("cpu", False)]
+    for r in res.values():
+        for name in ("new_global", "counts", "up_mask", "new_client_flats"):
+            assert torch.equal(getattr(r, name).cpu(),
+                               getattr(base, name)), name
+        assert r.stats == base.stats
+
+
+def test_attack_driver_on_the_card_matches_the_cpu(cuda):
+    K, P, Wp = 6, 480, 48
+    rng = np.random.default_rng(7)
+    flats = rng.integers(-4, 5, (K, P)).astype(np.float32)
+    churn = rounds.ChurnConfig(participation=0.9, straggle_rate=0.15,
+                               loss_rate=0.1, dup_rate=0.05)
+    att = rounds.AttackConfig("scale", n_attackers=1, boost=1e4)
+    cfg = server.EngineConfig(n_clients=K, n_params=P, payload=Wp,
+                              ring_capacity=7, compile=True,
+                              agg_mode="trimmed_mean", trim_beta=0.25,
+                              min_clients=1)
+    hists = [rounds.run_churn_rounds(cfg, churn, flats,
+                                     np.zeros(P, np.float32), 3,
+                                     rng=np.random.default_rng(11),
+                                     attack=att, device=dev)
+             for dev in ("cpu", cuda)]
+    for a, b in zip(hists[0].results, hists[1].results):
+        assert torch.equal(a.new_global, b.new_global.cpu())
+        assert torch.equal(a.counts, b.counts.cpu())
+    err = np.abs(hists[1].final_global.cpu().numpy()
+                 - flats.mean(axis=0)).max()
+    assert err < 20.0

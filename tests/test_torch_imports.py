@@ -53,6 +53,8 @@ def test_the_walk_sees_the_whole_port():
                  "src/repro_torch/data/synthetic.py",
                  "src/repro_torch/data/federated.py",
                  "src/repro_torch/models/cnn.py",
+                 "src/repro_torch/core/rounds.py",
+                 "src/repro_torch/runtime/fault_tolerance.py",
                  "chip_smoke.py"):
         assert want in rel
 

@@ -210,7 +210,7 @@ def test_drain_schedule_equals_reference(wire, assign):
                                                  s["ev_ref"], s["weights"])
     sched, stats, up = ec.demux_events(port.EngineConfig(**kw), s["ev"],
                                        s["weights"])
-    for f in ("idx", "weights", "payloads", "scales", "workers"):
+    for f in ("idx", "weights", "payloads", "scales", "workers", "clients"):
         a, b = getattr(sched, f), getattr(sched_r, f)
         assert (a is None) == (b is None), f
         if a is not None:
@@ -310,14 +310,22 @@ def test_compiled_rounds_quorum_error_carries_completed_rounds():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("agg_mode", "trimmed_mean"), ("agg_mode", "median"),
-    ("agg_mode", "norm_clip"), ("shards", 2), ("hosts", 2),
+    ("shards", 2), ("hosts", 2),
     ("buffer_size", 4), ("scan_body", "jnp"), ("scan_body", "pallas"),
     ("ring_capacity", 4096)])
 def test_unported_configs_raise(field, value):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         port.EngineConfig(n_clients=K, n_params=P, payload=W, compile=True,
                           **{field: value})
+
+
+@pytest.mark.parametrize("agg_mode", ["trimmed_mean", "median", "norm_clip"])
+@pytest.mark.parametrize("compile_", [False, True],
+                         ids=["eager", "compiled"])
+def test_robust_agg_modes_are_ported(agg_mode, compile_):
+    cfg = port.EngineConfig(n_clients=K, n_params=P, payload=W,
+                            compile=compile_, agg_mode=agg_mode)
+    assert cfg.agg_mode == agg_mode
 
 
 @pytest.mark.parametrize("kw", [
