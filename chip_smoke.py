@@ -9,24 +9,30 @@
 2. Builds every kernel library of ``src/repro_torch/csrc`` with ``nvcc``
    into ``build/``, one ``nvcc`` per source, all started together, and
    prints each build's time and ptxas report.
-3. Holds the scatter-accumulate kernels against their plain PyTorch
-   versions on the card at the packet path's shapes (f32: S=12,495
-   slots x W=367, q8: S=3,133 x W=1,464; batches of 64 real packets
-   padded to 128; exact and approx): bitwise on integer payloads and
-   power-of-two q8 scales, rtol 1e-5 / atol 1e-6 on Gaussian payloads,
-   where the sum order differs.  Times kernel, plain version and
-   ``index_add_``: device time per call (``torch.profiler``) and
-   back-to-back call time (CUDA events), and prints the least time the
-   card could take (the bound).
+3. The scatter-accumulate kernels at the packet path's shapes (f32:
+   S=12,495 slots x W=367, q8: S=3,133 x W=1,464).  The per-drain
+   kernel on drained rings of 64 packets (the eager engine's), exact and
+   approx, against its plain version: bitwise on integer and Gaussian
+   payloads; timed beside its plain version and ``index_add_``.  The
+   round fold on the real drain schedules of phase 4's f32 and q8
+   streams (their index and weight columns, Gaussian payloads and
+   scales), exact and approx: kernel == plain slot-major version == the
+   per-batch kernel run row by row, bit for bit, and two runs alike;
+   timed beside the row-by-row loop it replaced, its plain version,
+   one ``index_add_`` of the round's weighted decoded real rows, and its
+   bound.  Device time per call (``torch.profiler``) and back-to-back
+   call time (CUDA events).
 4. The packet path at the paper model's width (K=10 clients,
    P=4,585,546 parameters, 5 workers, ring capacity 64, 1% loss, 2%
    duplicates, shuffled): ``run_engine_round`` eager and compiled, f32
    and q8, exact and approx, then ``run_compiled_rounds`` over 3
    chained rounds.  Checks eager == compiled bitwise (integer
-   payloads), the stats' conservation, that the launch counters rose by
-   the number of drained batches, that the compiled round equals the
-   same schedule folded by the plain versions, and that every output is
-   finite.  Prints round time, packets/s and peak device memory.
+   payloads), the stats' conservation, that each compiled round made
+   one round fold and no per-batch launch and each eager round one
+   per-drain launch per drained ring, that the compiled round equals
+   the same schedule folded by the plain versions, and that every
+   output is finite.  Prints round time, packets/s and peak device
+   memory.
 5. Where a packet-path round's time goes: ``run_engine_round`` under the
    profiler; the compiled round's host demux and enqueue from the
    port's named spans, and the device's busy time.
@@ -40,17 +46,18 @@
    2% duplicates), f32 and int8, with and without ``init``: bitwise.
    Times each at its path's shape beside its bound, its plain version,
    and ``index_copy_`` or, for the finalize, the sort-based twin
-   (several calls).
+   (several calls) and, for the median, ``torch.nanquantile`` (one
+   call; checked against the kernel to rtol 1e-6).
 7. The robust round at paper width: ``trimmed_mean``, ``median`` and
    ``norm_clip`` (tau at half the median row norm, so the clip is
    active), f32 and q8, eager and compiled, on the packet path's
    streams.  Checks eager == compiled and compiled == the same round
    with every kernel replaced by its plain version, bit for bit; the
-   stats' conservation and counts; that kernels 1/2 launched once per
-   schedule row of the rounds whose fold makes the result (the compiled
-   rounds and eager norm clip: the eager trimmed mean and median fill
-   their client table on the host) and ``robust_finalize`` once per
-   trimmed-mean or median round.  Prints round time and peak device memory, then each compiled
+   stats' conservation and counts; that each compiled round made one
+   round fold, eager norm clip one per-drain launch per drained ring
+   (the eager trimmed mean and median fill their client table on the
+   host), and ``robust_finalize`` ran once per trimmed-mean or median
+   round.  Prints round time and peak device memory, then each compiled
    round under the profiler (device busy, kernel times, idle share).
    The clients' side of the f32 rounds' downlink goes through
    ``ops.packet_scatter`` and must reproduce the engine's client state.
@@ -121,9 +128,9 @@ def device_info() -> dict:
 # Kernel vs plain version at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def make_batch(rng, dev, n_slots, width, q8, integer, n_real=64, n=128):
-    """One drained batch as the main path gives it: ``n_real`` packets
-    (a few slots hit twice, one with weight 0) padded to ``n`` with
+def make_batch(rng, dev, n_slots, width, q8, integer, n_real=64, n=64):
+    """One drained ring as the eager engine folds it: ``n_real`` packets
+    (a few slots hit twice, one with weight 0), padded to ``n`` with
     inert rows, plus a live accumulator."""
     slots = rng.choice(n_slots, n_real, replace=False)
     slots[1::9] = slots[0::9][:len(slots[1::9])]     # same-slot collisions
@@ -238,6 +245,26 @@ def device_ms(fn, calls=50) -> float:
     return total_us / 1e3 / calls if total_us > 0 else None
 
 
+def device_split(fn, calls=20) -> dict:
+    """Device time (us) per call of each kernel or memset ``fn`` runs, by
+    name (the kernels of csrc/packet_scatter.cu by their short name)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        name = next((k for k in FOLD_KERNELS if k + "<" in e.key
+                     or k + "(" in e.key), e.key[:40])
+        out[name] = out.get(name, 0.0) + e.self_device_time_total / calls
+    return out
+
+
 def timed(fns: dict, iters=200, warmup=20, calls=50) -> dict:
     """``key + call_ms`` (CUDA events, ``iters`` calls back to back),
     ``key + device_ms`` (profiler, ``calls`` calls) and ``key + ms``
@@ -253,10 +280,10 @@ def timed(fns: dict, iters=200, warmup=20, calls=50) -> dict:
 
 
 def time_kernel(rng, dev, n_slots, width, q8) -> dict:
-    """Kernel (exact and approx), plain version and ``index_add_`` on one
-    main-path batch: device time per call (profiler) and the time of a
-    call back to back with the next (CUDA events; the host's launch
-    cost when it exceeds the device's)."""
+    """The per-drain kernel (exact and approx), its plain version and
+    ``index_add_`` on one drained ring of 64 packets: device time per
+    call (profiler) and the time of a call back to back with the next
+    (CUDA events; the host's launch cost when it exceeds the device's)."""
     b = make_batch(rng, dev, n_slots, width, q8, integer=False)
     real = b["idx"] >= 0
     ridx = b["idx"][real].long()
@@ -275,18 +302,105 @@ def time_kernel(rng, dev, n_slots, width, q8) -> dict:
         "library_": lambda: acc.index_add_(0, ridx, src),
     }
     out = timed(fns)
-    # one paper-width round's fold: 200 such rows through the
-    # schedule loop (pointers computed once), per row
-    R = 200
-    sched = [b["idx"].repeat(R, 1), b["weights"].repeat(R, 1),
-             b["packets"].repeat(R, 1, 1)]
-    ssc = None if b["scales"] is None else b["scales"].repeat(R, 1)
-    from repro_torch.kernels.packet_scatter import packet_scatter_accum_rounds
-    out["row_in_fold_ms"] = time_ms(
-        lambda: packet_scatter_accum_rounds(*sched, acc, b["counts"],
-                                            sched_scales=ssc),
-        iters=5, warmup=1) / R
     out["bound_ms"], out["bound_by"] = batch_bound(b)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The round fold on a real drain schedule
+# ---------------------------------------------------------------------------
+
+def round_schedule(rng, dev, cfg, events, weights, q8) -> dict:
+    """The real rows of the compiled round's drain schedule of ``events``
+    on the card: its index and weight columns as demuxed, Gaussian f32
+    payloads (q8: random int8 rows and scales in [1e-3, 1e-1]) in place of
+    the stream's integer ones, and a Gaussian accumulator."""
+    from repro_torch.core.engine_compiled import demux_events
+    sched, _, _ = demux_events(cfg, events, weights)
+    nb = sched.n_batches
+    R, B = nb, sched.idx.shape[1]
+    W = cfg.payload
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if q8:
+        pk = t(rng.integers(-127, 128, (R, B, W)).astype(np.int8))
+        sc = t(rng.uniform(1e-3, 1e-1, (R, B)).astype(np.float32)
+               * (sched.scales[:nb] > 0))
+    else:
+        pk = t(rng.normal(size=(R, B, W)).astype(np.float32))
+        sc = None
+    return {"idx": t(sched.idx[:nb]), "weights": t(sched.weights[:nb]),
+            "packets": pk, "scales": sc,
+            "acc": t(rng.normal(size=(cfg.n_slots, W)).astype(np.float32)),
+            "counts": torch.zeros(cfg.n_slots, device=dev)}
+
+
+def fold_round(r, acc, counts, exact=True, how="kernel"):
+    """Fold schedule ``r`` into (acc, counts): the round kernel (in
+    place), the plain slot-major version (functional), or the per-batch
+    kernel launched once per schedule row (in place) -- the loop the
+    round kernel replaced, kept here as its yardstick."""
+    from repro_torch.kernels import packet_scatter as ps
+    idx, w, pk, sc = r["idx"], r["weights"], r["packets"], r["scales"]
+    if how == "kernel":
+        return ps.packet_scatter_accum_rounds(idx, w, pk, acc, counts,
+                                              sched_scales=sc, exact=exact)
+    if how == "plain":
+        return ps.packet_scatter_accum_rounds_plain(
+            idx, w, pk, acc, counts, sched_scales=sc, exact=exact)
+    for row in range(idx.shape[0]):
+        if sc is None:
+            ps.packet_scatter_accum(pk[row], idx[row], w[row], acc, counts,
+                                    exact=exact)
+        else:
+            ps.packet_scatter_accum_q8(pk[row], sc[row], idx[row], w[row],
+                                       acc, counts, exact=exact)
+    return acc, counts
+
+
+def compare_round_fold(r) -> float:
+    """Round kernel == plain slot-major == per-batch kernel row by row,
+    and two kernel runs alike, bit for bit, exact and approx (raises
+    otherwise).  -> 0.0, the max abs error."""
+    for exact in (True, False):
+        want = fold_round(r, r["acc"], r["counts"], exact, "plain")
+        got = [fold_round(r, r["acc"].clone(), r["counts"].clone(), exact,
+                          how) for how in ("kernel", "kernel", "rows")]
+        sync(r["acc"].device)
+        for (a, c), how in zip(got, ("kernel", "kernel again", "rows")):
+            assert torch.equal(a, want[0]) and torch.equal(c, want[1]), (
+                f"round fold exact={exact}: {how} != plain")
+    return 0.0
+
+
+def time_round_fold(r) -> dict:
+    """The round kernel (exact and approx), the per-row loop it replaced,
+    its plain version and one ``index_add_`` of the round's weighted,
+    decoded real rows (built outside the timed call), each on schedule
+    ``r``; its bound over the schedule's real rows and hit slots."""
+    idx, w, pk, sc = r["idx"], r["weights"], r["packets"], r["scales"]
+    acc, cnt = r["acc"].clone(), r["counts"].clone()
+    real = idx >= 0
+    ridx = idx[real].long()
+    rows = pk[real].float()
+    if sc is not None:
+        rows = rows * sc[real][:, None]
+    src = (w[real][:, None] * rows).contiguous()
+    del rows
+    out = timed({
+        "": lambda: fold_round(r, acc, cnt),
+        "approx_": lambda: fold_round(r, acc, cnt, exact=False),
+        "library_": lambda: acc.index_add_(0, ridx, src),
+    }, iters=50, warmup=5, calls=20)
+    out.update(timed({
+        "plain_": lambda: fold_round(r, r["acc"], r["counts"], how="plain"),
+        "rows_": lambda: fold_round(r, acc, cnt, how="rows"),
+    }, iters=3, warmup=1, calls=2))
+    out["split_us"] = device_split(lambda: fold_round(r, acc, cnt))
+    out["bound_ms"], out["bound_by"] = fold_bound(
+        int(real.sum()), int(torch.unique(ridx).numel()), acc.shape[1],
+        sc is not None)
+    out.update(rows=idx.shape[0], batch=idx.shape[1],
+               real_packets=int(real.sum()))
     return out
 
 
@@ -390,34 +504,63 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def main_path(dev, n_clients, n_params, log=print) -> dict:
-    """Drive the port's entry points at the given width; every check
-    raises on failure.  -> per-round rows and the launch counts."""
-    from repro_torch.core.server import (EngineConfig, make_uplink_stream,
-                                         run_engine_round)
-    from repro_torch.core.engine_compiled import run_compiled_rounds
-    from repro_torch.kernels import packet_scatter as ps
+def path_streams(n_clients, n_params):
+    """The main path's f32 and q8 rounds: per wire a workload and its
+    uplink stream, from ``SEED`` -> ([(wire, workload, events)], the
+    generator, to go on drawing from)."""
+    from repro_torch.core.server import make_uplink_stream
     rng = np.random.default_rng(SEED)
-    rows = []
-    ps.packet_scatter_accum.launches = 0
-    ps.packet_scatter_accum_q8.launches = 0
+    out = []
     for wire in ("f32", "q8"):
         wl = make_workload(rng, n_clients, n_params, q8=(wire == "q8"))
         events, _ = make_uplink_stream(rng, wl.pk, loss_rate=LOSS,
                                        dup_rate=DUP, scales=wl.scales)
+        out.append((wire, wl, events))
+    return out, rng
+
+
+def path_config(wl: Workload, mode="exact", compiled=True):
+    from repro_torch.core.server import EngineConfig
+    return EngineConfig(n_clients=wl.flats.shape[0],
+                        n_params=wl.flats.shape[1], payload=wl.pk.shape[2],
+                        n_workers=N_WORKERS, ring_capacity=RING_CAPACITY,
+                        mode=mode, compile=compiled)
+
+
+FOLD_COUNTERS = ("packet_scatter_accum", "packet_scatter_accum_q8",
+                 "packet_scatter_accum_rounds")
+
+
+def fold_counts() -> dict:
+    from repro_torch.kernels import packet_scatter as ps
+    return {name: getattr(ps, name).launches for name in FOLD_COUNTERS}
+
+
+def fold_rise(before: dict) -> tuple:
+    """(per-drain f32, per-batch q8, round fold) launches since
+    ``before``."""
+    now = fold_counts()
+    return tuple(now[k] - before[k] for k in FOLD_COUNTERS)
+
+
+def main_path(dev, streams, rng, log=print) -> dict:
+    """Drive the port's entry points on ``path_streams``' rounds; every
+    check raises on failure.  -> per-round rows and the launch counts:
+    the per-drain kernel's, and the round folds per wire."""
+    from repro_torch.core.server import make_uplink_stream, run_engine_round
+    from repro_torch.core.engine_compiled import run_compiled_rounds
+    from repro_torch.kernels import packet_scatter as ps
+    rows = []
+    for name in FOLD_COUNTERS:
+        getattr(ps, name).launches = 0
+    rounds_by_wire = {"f32": 0, "q8": 0}
+    for wire, wl, events in streams:
         n_data = count_data(events)
         for mode in ("exact", "approx"):
             results = {}
             for compiled in (False, True):
-                cfg = EngineConfig(n_clients=n_clients, n_params=n_params,
-                                   payload=wl.pk.shape[2],
-                                   n_workers=N_WORKERS,
-                                   ring_capacity=RING_CAPACITY, mode=mode,
-                                   compile=compiled)
-                counter = (ps.packet_scatter_accum_q8
-                           if wire == "q8" and compiled
-                           else ps.packet_scatter_accum)
-                before = counter.launches
+                cfg = path_config(wl, mode, compiled)
+                before = fold_counts()
                 if dev.type == "cuda":
                     torch.cuda.reset_peak_memory_stats(dev)
                 sync(dev)
@@ -427,11 +570,16 @@ def main_path(dev, n_clients, n_params, log=print) -> dict:
                                        weights=wl.weights, device=dev)
                 sync(dev)
                 dt = time.perf_counter() - t0
-                launches = counter.launches - before
+                rise = fold_rise(before)
                 check_round(res, events, wl, cfg)
+                # compiled: one round fold; eager: the per-drain kernel
+                # once per ring (the q8 rows are decoded at RX)
+                want = ((0, 0, 1) if compiled
+                        else (res.stats.batches_drained, 0, 0))
                 if dev.type == "cuda":
-                    assert launches == res.stats.batches_drained, (
-                        launches, res.stats.batches_drained)
+                    assert rise == want, (wire, mode, compiled, rise, want)
+                rounds_by_wire[wire] += rise[2]
+                launches = sum(rise)
                 results[compiled] = res
                 row = {"wire": wire, "mode": mode,
                        "engine": "compiled" if compiled else "eager",
@@ -448,13 +596,12 @@ def main_path(dev, n_clients, n_params, log=print) -> dict:
             plain = plain_round(cfg, events, wl, dev)
             assert_same(results[True], plain, f"plain vs compiled {wire} {mode}")
     # three chained compiled rounds through the double-buffered driver
+    n_clients, n_params = streams[0][1].flats.shape
     wl = make_workload(rng, n_clients, n_params, q8=False)
-    cfg = EngineConfig(n_clients=n_clients, n_params=n_params,
-                       payload=wl.pk.shape[2], n_workers=N_WORKERS,
-                       ring_capacity=RING_CAPACITY, compile=True)
+    cfg = path_config(wl)
     streams = [make_uplink_stream(rng, wl.pk, loss_rate=LOSS,
                                   dup_rate=DUP)[0] for _ in range(3)]
-    before = ps.packet_scatter_accum.launches
+    before = fold_counts()
     sync(dev)
     t0 = time.perf_counter()
     chained = run_compiled_rounds(
@@ -462,7 +609,7 @@ def main_path(dev, n_clients, n_params, log=print) -> dict:
         weights=wl.weights, device=dev)
     sync(dev)
     dt = time.perf_counter() - t0
-    launches = ps.packet_scatter_accum.launches - before
+    rise = fold_rise(before)
     prev = wl.prev
     for ev, res in zip(streams, chained):
         check_round(res, ev, dataclasses.replace(wl, prev=prev), cfg)
@@ -472,17 +619,29 @@ def main_path(dev, n_clients, n_params, log=print) -> dict:
         prev = res.new_global
     n_data = sum(count_data(ev) for ev in streams)
     if dev.type == "cuda":
-        assert launches == sum(r.stats.batches_drained for r in chained)
+        assert rise == (0, 0, 3), rise
+    rounds_by_wire["f32"] += rise[2]
     row = {"wire": "f32", "mode": "exact", "engine": "compiled_rounds x3",
            "round_s": dt / 3, "data_packets": n_data,
-           "packets_per_s": n_data / dt, "launches": launches}
+           "packets_per_s": n_data / dt, "launches": sum(rise)}
     rows.append(row)
     log(json.dumps(row))
     return {"rows": rows,
             "launches": {"packet_scatter_accum":
                          ps.packet_scatter_accum.launches,
-                         "packet_scatter_accum_q8":
-                         ps.packet_scatter_accum_q8.launches}}
+                         "packet_scatter_accum_rounds": rounds_by_wire["f32"],
+                         "packet_scatter_accum_rounds_q8":
+                         rounds_by_wire["q8"]}}
+
+
+# the kernels of csrc/packet_scatter.cu: the per-drain kernel and the
+# round fold's four passes
+FOLD_KERNELS = ("batch_kernel", "count_hits", "scan_offsets", "fill_hits",
+                "fold_kernel")
+
+
+def is_fold_kernel(key: str) -> bool:
+    return any(k + "<" in key or k + "(" in key for k in FOLD_KERNELS)
 
 
 def round_breakdown(dev, n_clients, n_params, log=print) -> list:
@@ -526,7 +685,7 @@ def round_breakdown(dev, n_clients, n_params, log=print) -> list:
                       and not getattr(e, "is_user_annotation", False)]
             busy = sum(e.self_device_time_total for e in on_dev) / 1e6
             kern = sum(e.self_device_time_total for e in on_dev
-                       if "scatter_accum_kernel" in e.key) / 1e6
+                       if is_fold_kernel(e.key)) / 1e6
             h2d = sum(e.self_device_time_total for e in on_dev
                       if "HtoD" in e.key) / 1e6
             row = {"wire": wire, "engine": "compiled" if compiled else "eager",
@@ -938,12 +1097,36 @@ def time_robust(rng, dev, S, K, W, S_q8, W_q8) -> dict:
         "sort_twin_": lambda: robust_sort_twin(tab, pres, False, 0.2),
     }, **few)
     out["bound_ms"], out["bound_by"] = robust_bound(tab, pres)
+    out.update(median_library(tab, pres, few))
     del tab, pres
     tq, pq = robust_table(rng, dev, S_q8, K, W_q8, integer=False)
     out.update({"q8_table_" + k: v for k, v in timed(
         {"": lambda: ps.robust_finalize(tq, pq, beta=0.2)}, **few).items()})
     out["q8_table_bound_ms"], _ = robust_bound(tq, pq)
-    out["library_ms"] = None
+    return out
+
+
+def median_library(tab, pres, few) -> dict:
+    """The median mode's one-call counterpart: the absent entries set to
+    NaN (outside the timed call), then ``torch.nanquantile`` over the
+    clients with the midpoint of the middle pair.  Checked against the
+    kernel's median where a slot has a contributor, rtol 1e-6 / atol 1e-6
+    (the kernel divides the pair's sum by 2, torch interpolates between
+    them: the two round apart where the pair nearly cancels).
+    -> ``library_ms`` and the check's error."""
+    from repro_torch.kernels import packet_scatter as ps
+    nan_tab = torch.where(pres[:, :, None] > 0, tab, float("nan"))
+    want, m = ps.robust_finalize(tab, pres, median=True)
+    quantile = lambda: torch.nanquantile(nan_tab, 0.5, dim=1,
+                                         interpolation="midpoint")
+    got = quantile()
+    out = {"library_fn": "torch.nanquantile(q=0.5, midpoint), median mode"}
+    out.update({"library_" + k: v for k, v in timed(
+        {"": quantile}, **few).items()})
+    sync(tab.device)
+    has = m > 0
+    torch.testing.assert_close(got[has], want[has], rtol=1e-6, atol=1e-6)
+    out["library_max_abs_err"] = float((got[has] - want[has]).abs().max())
     return out
 
 
@@ -1136,18 +1319,20 @@ def robust_path(dev, n_clients, n_params, log=print) -> dict:
     eager and compiled, f32 and q8, with the counts of every kernel at 0
     just before and read just after.  Checks eager == compiled and
     compiled == plain bitwise, conservation, counts and finiteness, and
-    that kernels 1/2 launched once per schedule row of the rounds that
-    fold on the card (not the eager table modes, whose table is filled
-    on the host) and kernel 5 once per table-mode round.  -> per-round rows, the launch counts and one
+    that each compiled round made one round fold, each eager norm-clip
+    round one per-drain launch per drained ring (the eager table modes
+    fill their table on the host and fold nothing) and kernel 5 ran once
+    per table-mode round.  -> per-round rows, the launch counts and one
     compiled f32 result per mode (for the placement path)."""
     from repro_torch.core.server import make_uplink_stream, run_engine_round
     from repro_torch.kernels import packet_scatter as ps
     rng = np.random.default_rng(SEED + 3)
     counters = (ps.packet_scatter_accum, ps.packet_scatter_accum_q8,
-                ps.robust_finalize, ps.packet_scatter)
+                ps.packet_scatter_accum_rounds, ps.robust_finalize,
+                ps.packet_scatter)
     for c in counters:
         c.launches = 0
-    rows, rows_folded, table_rounds, kept = [], 0, 0, {}
+    rows, drains, compiled_rounds, table_rounds, kept = [], 0, 0, 0, {}
     for wire in ("f32", "q8"):
         wl = make_workload(rng, n_clients, n_params, q8=(wire == "q8"))
         events, _ = make_uplink_stream(rng, wl.pk, loss_rate=LOSS,
@@ -1171,9 +1356,11 @@ def robust_path(dev, n_clients, n_params, log=print) -> dict:
                 sync(dev)
                 dt = time.perf_counter() - t0
                 check_robust_round(res, events, wl, cfg)
-                if compiled or agg == "norm_clip":
+                if compiled:
+                    compiled_rounds += 1
+                elif agg == "norm_clip":
                     # the eager table modes drain for the stats only
-                    rows_folded += res.stats.batches_drained
+                    drains += res.stats.batches_drained
                 table_rounds += agg != "norm_clip"
                 results[compiled] = res
                 row = {"wire": wire, "agg_mode": agg,
@@ -1195,10 +1382,11 @@ def robust_path(dev, n_clients, n_params, log=print) -> dict:
             if wire == "f32":
                 kept[agg] = (results[True], wl)
     launches = {c.__name__: c.launches for c in counters}
-    folds = (launches["packet_scatter_accum"]
-             + launches["packet_scatter_accum_q8"])
     if dev.type == "cuda":
-        assert folds == rows_folded, (folds, rows_folded)
+        assert launches["packet_scatter_accum"] == drains, (launches, drains)
+        assert launches["packet_scatter_accum_q8"] == 0, launches
+        assert launches["packet_scatter_accum_rounds"] == compiled_rounds, (
+            launches, compiled_rounds)
         assert launches["robust_finalize"] == table_rounds, launches
     return {"rows": rows, "launches": launches, "kept": kept}
 
@@ -1235,7 +1423,9 @@ def robust_breakdown(dev, n_clients, n_params, log=print) -> list:
                                    if key in e.key) / 1e6
             row = {"wire": wire, "agg_mode": agg, "round_s": dt,
                    "device_busy_s": busy,
-                   "scatter_kernel_s": pick("scatter_accum_kernel"),
+                   "scatter_kernel_s": sum(
+                       e.self_device_time_total for e in on_dev
+                       if is_fold_kernel(e.key)) / 1e6,
                    "finalize_kernel_s": pick("robust_finalize"),
                    "h2d_s": pick("HtoD"), "device_idle_share": 1 - busy / dt,
                    "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
@@ -1303,7 +1493,9 @@ def attack_path(dev, n_clients, n_params, log=print) -> dict:
                            payload=PAYLOAD_F32, n_workers=N_WORKERS,
                            ring_capacity=RING_CAPACITY, compile=True,
                            agg_mode=agg, trim_beta=0.25, min_clients=1)
-        for c in (ps.packet_scatter_accum, ps.robust_finalize):
+        counters = (ps.packet_scatter_accum, ps.packet_scatter_accum_rounds,
+                    ps.robust_finalize)
+        for c in counters:
             c.launches = 0
         sync(dev)
         t0 = time.perf_counter()
@@ -1312,18 +1504,16 @@ def attack_path(dev, n_clients, n_params, log=print) -> dict:
                                 device=dev)
         g = hist.final_global.cpu().numpy()
         dt = time.perf_counter() - t0
-        rows_folded = sum(r.stats.batches_drained for r in hist.results)
+        folded = sum(r.stats.batches_drained > 0 for r in hist.results)
         if dev.type == "cuda":
-            assert ps.packet_scatter_accum.launches == rows_folded
+            assert ps.packet_scatter_accum.launches == 0
+            assert ps.packet_scatter_accum_rounds.launches == folded
             assert ps.robust_finalize.launches == (
                 ATTACK_ROUNDS if agg == "trimmed_mean" else 0)
         assert np.isfinite(g).all()
         out[agg] = {"max_abs_err": float(np.abs(g - honest_mean).max()),
                     "seconds": dt,
-                    "launches": {"packet_scatter_accum":
-                                 ps.packet_scatter_accum.launches,
-                                 "robust_finalize":
-                                 ps.robust_finalize.launches}}
+                    "launches": {c.__name__: c.launches for c in counters}}
         log(json.dumps({"agg_mode": agg, **out[agg]}))
     err_robust = out["trimmed_mean"]["max_abs_err"]
     err_mean = out["mean"]["max_abs_err"]
@@ -1381,24 +1571,43 @@ def main() -> int:
               "packet_scatter_accum_q8":
               (PacketizedShape(P, PAYLOAD_Q8).n_packets, PAYLOAD_Q8, True)}
     rng = np.random.default_rng(SEED)
-    kernels = {}
+    kernels, off_path = {}, {}
     for name, (S, W, q8) in shapes.items():
         err = 0.0
         for exact in (True, False):
             for integer in (True, False):
                 e = compare_kernel(rng, dev, S, W, q8, exact, integer)
-                assert not integer or e == 0.0, (name, exact, e)
+                assert e == 0.0, (name, exact, integer, e)
                 err = max(err, e)
         timing = time_kernel(rng, dev, S, W, q8)
-        kernels[name] = {"S": S, "W": W, "batch": 128, "real": 64,
-                         "max_abs_err": err, **timing}
-        print(f"# {name} S={S} W={W}: max_abs_err {err:.3g}; "
+        # the per-batch q8 entry point is off the main path now: the
+        # eager engine decodes q8 rows at RX, the compiled one folds rounds
+        (off_path if q8 else kernels)[name] = {
+            "S": S, "W": W, "batch": 64, "real": 64, "max_abs_err": err,
+            **timing}
+        print(f"# {name} (per drain) S={S} W={W}: max_abs_err {err:.3g}; "
               + json.dumps(timing), flush=True)
+
+    # the round fold on the real drain schedules of the main path's f32
+    # and q8 rounds
+    streams, stream_rng = path_streams(K_CLIENTS, P)
+    for wire, wl, events in streams:
+        name = "packet_scatter_accum_rounds" + ("_q8" if wire == "q8" else "")
+        r = round_schedule(rng, dev, path_config(wl), events, wl.weights,
+                           wire == "q8")
+        err = compare_round_fold(r)
+        timing = time_round_fold(r)
+        del r
+        kernels[name] = {"S": path_config(wl).n_slots, "W": wl.pk.shape[2],
+                         "max_abs_err": err, **timing}
+        print(f"# {name}: round fold == plain == per-batch kernel row by "
+              f"row, bitwise; " + json.dumps(timing), flush=True)
 
     # the main path: counts at 0 just before, read just after
     t0 = time.perf_counter()
-    path = main_path(dev, K_CLIENTS, P,
+    path = main_path(dev, streams, stream_rng,
                      log=lambda s: print("# round " + s, flush=True))
+    del streams
     print(f"# main path: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, n in path["launches"].items():
         assert n > 0, f"{name} was not launched on the main path"
@@ -1441,9 +1650,11 @@ def main() -> int:
                     ("packet_scatter", placement["launches"])):
         assert n > 0, f"{name} was not launched on the robust path"
         path["launches"][name] = n
-    for name in ("packet_scatter_accum", "packet_scatter_accum_q8"):
-        assert robust["launches"][name] > 0, name
-        kernels[name]["robust_path_launches"] = robust["launches"][name]
+    for name, key in (("packet_scatter_accum", "packet_scatter_accum"),
+                      ("packet_scatter_accum_rounds",
+                       "packet_scatter_accum_rounds")):
+        assert robust["launches"][key] > 0, key
+        kernels[name]["robust_path_launches"] = robust["launches"][key]
     robust_breakdown(dev, K_CLIENTS, P,
                      log=lambda s: print("# robust breakdown " + s,
                                          flush=True))
@@ -1482,9 +1693,12 @@ def main() -> int:
     replaces = {
         "packet_scatter_accum": ("packet_scatter.cu", "packet_scatter.py:173",
                                  "packet_scatter_accum_pallas"),
-        "packet_scatter_accum_q8": ("packet_scatter.cu",
-                                    "packet_scatter.py:227",
-                                    "packet_scatter_accum_q8_pallas"),
+        "packet_scatter_accum_rounds": ("packet_scatter.cu",
+                                        "packet_scatter.py:173",
+                                        "packet_scatter_accum_pallas"),
+        "packet_scatter_accum_rounds_q8": ("packet_scatter.cu",
+                                           "packet_scatter.py:227",
+                                           "packet_scatter_accum_q8_pallas"),
         "fedavg_accum": ("fedavg_accum.cu", "fedavg_accum.py:59",
                          "fedavg_accum_pallas"),
         "quantized_accum": ("fedavg_accum.cu", "quantized_accum.py:48",
@@ -1514,6 +1728,10 @@ def main() -> int:
             "library_us": (None if k["library_ms"] is None
                            else k["library_ms"] * 1e3),
             "bound_us": k["bound_ms"] * 1e3, **extra})
+    for name, k in off_path.items():
+        print(f"# off the main path: {name} (per batch) "
+              f"{k['ms'] * 1e3:.3f} us, index_add_ "
+              f"{k['library_ms'] * 1e3:.3f} us", flush=True)
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,9 @@ module keeps the *semantics* of that pipeline and restructures the
 
 2. **The round on the device** (``_round_device``): the schedule's real
    rows are copied to the device once and folded into the
-   ``(total, counts)`` accumulators, in place, by one scatter-accumulate
-   launch per row on one stream with no host sync between them
-   (``kernels.packet_scatter.packet_scatter_accum_rounds``).  The END
+   ``(total, counts)`` accumulators, in place, by one round fold: a
+   fixed set of launches whatever the number of rows, on one stream with
+   no host sync (``kernels.packet_scatter.packet_scatter_accum_rounds``).  The END
    divide, the per-slot fallback to the previous global and the TX
    downlink fallback follow as torch ops on the device.
 
@@ -30,14 +30,13 @@ module keeps the *semantics* of that pipeline and restructures the
    each packet's weight by ``tau / max(tau, ||row||)`` before the fold;
    ``trimmed_mean`` and ``median`` rewrite the schedule to the combined
    index ``slot*K + client`` with presence weight 1.0, fold it into an
-   ``(S*K, W)`` table (the scatter kernels on the card, one
-   ``index_add_`` on the CPU) and finalize with the rank-select kernel
+   ``(S*K, W)`` table (the round fold on the card, one ``index_add_`` on
+   the CPU) and finalize with the rank-select kernel
    (``kernels.packet_scatter.robust_finalize``).
 
 Torch port of ``repro.core.engine_compiled`` for ``shards=1`` and
 ``hosts=1``.  The reference runs a round as one ``lax.scan`` dispatch;
-here it is one launch per schedule row (one launch or one CUDA graph
-per round is later work, ROADMAP.md).
+here the fold is one slot-major round kernel (four launches).
 """
 from __future__ import annotations
 
@@ -371,7 +370,7 @@ def _round_device(total: torch.Tensor, counts: torch.Tensor,
     new_flats|None).
 
     total (S, W) / counts (S,) are updated in place (the reference
-    donates them) by the drain fold, one kernel launch per schedule row;
+    donates them) by the drain fold, one round fold for all the rows;
     then the END divide with per-slot fallback and, when
     ``down_mask`` is given, the TX downlink fallback.  On the q8 wire
     ``sched_pk`` is int8 and each row is decoded inside the kernel.
@@ -405,8 +404,8 @@ def _robust_round_device(sched_idx: torch.Tensor, sched_w: torch.Tensor,
     The schedule carries the combined index ``slot*K + client`` and
     presence weight 1.0, so the fold writes each (slot, client) row of a
     freshly zeroed ``(S*K, W)`` table exactly once, as ``0 + 1.0*row``:
-    on the card through the scatter kernels (one launch per schedule row,
-    always exact: rows that never collide cannot race), on the CPU with
+    on the card through the round fold (always exact: rows that never
+    collide cannot race), on the CPU with
     one ``index_add_``; the bits are the same.  The table and its
     presence feed the rank-select finalize; its per-slot contributor
     count ``m`` takes the place of the mean path's counts (the same

@@ -26,8 +26,10 @@ Each function comes in three forms:
   agree bit for bit on any payload.  The reference's jnp twin
   (``packet_scatter_accum_batch_jnp``) routes through a one-hot (S x N)
   matmul instead; the sums agree wherever they are exact.
-- ``packet_scatter_accum_rounds``: a whole round's drain schedule, one
-  launch per schedule row on the current stream, no host sync.
+- ``packet_scatter_accum_rounds`` / ``packet_scatter_accum_rounds_plain``:
+  a whole round's drain schedule, folded slot-major (one warp per slot
+  for the whole round) in a fixed set of launches on the current
+  stream, no host sync; bit for bit the rows folded one by one.
 
 The Byzantine-robust modes (DESIGN.md §11) add, in the same forms:
 
@@ -48,8 +50,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-# the kernel stages a batch's idx, weights and hit list in shared
-# memory (12 B a packet); 2048 packets stay inside the default 48 KB.
+# the largest drained batch the per-drain kernel takes: each of its CTAs
+# scans the batch's earlier positions for an owner, O(N) a CTA.
 # EngineConfig refuses a ring capacity above it.
 MAX_BATCH = 2048
 
@@ -57,24 +59,6 @@ MAX_BATCH = 2048
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path, and the yardstick on the card)
 # ---------------------------------------------------------------------------
-
-def _hit_order(idx: torch.Tensor, n_slots: int):
-    """The real entries of a batch (``0 <= idx < n_slots``) in packet
-    order -> (positions, their slots, each one's rank among the earlier
-    hits of its slot): the order in which the kernel folds a slot's
-    hits."""
-    slot = idx.to(torch.int64)
-    pos = torch.nonzero((slot >= 0) & (slot < n_slots)).flatten()
-    s = slot[pos]
-    srt, perm = torch.sort(s, stable=True)
-    first = torch.ones_like(srt, dtype=torch.bool)
-    first[1:] = srt[1:] != srt[:-1]
-    at = torch.arange(srt.numel(), device=idx.device)
-    start = torch.cummax(torch.where(first, at, 0), dim=0).values
-    rank = torch.empty_like(at)
-    rank[perm] = at - start
-    return pos, s, rank
-
 
 def packet_scatter_accum_plain(packets: torch.Tensor, idx: torch.Tensor,
                                weights: torch.Tensor, acc: torch.Tensor,
@@ -87,39 +71,11 @@ def packet_scatter_accum_plain(packets: torch.Tensor, idx: torch.Tensor,
     summed in packet order from 0 (``w * x`` each, then added), and the
     sum is added to the slot's row once; the counts likewise.  Approx
     mode adds only the last hit with a positive weight.  So the kernel
-    and this version agree bit for bit on any payload and weights.
+    and this version agree bit for bit on any payload and weights.  It
+    is the round of one row.
     """
-    S, W = acc.shape
-    pos, s, rank = _hit_order(idx, S)
-    w = weights.to(torch.float32)[pos]
-    pkt = packets.to(torch.float32)[pos]
-    slots, group = torch.unique(s, return_inverse=True)
-    c_sum = torch.zeros(slots.shape, dtype=torch.float32, device=acc.device)
-    p_sum = torch.zeros((slots.numel(), W), dtype=torch.float32,
-                        device=acc.device)
-    n_rank = int(rank.max()) + 1 if rank.numel() else 0
-    for j in range(n_rank):          # the j-th hit of every slot at once
-        sel = rank == j
-        g = group[sel]
-        c_sum[g] = c_sum[g] + w[sel]
-        if exact:
-            p_sum[g] = p_sum[g] + w[sel, None] * pkt[sel]
-    counts = counts.clone()
-    counts[slots] = counts[slots] + c_sum
-    acc = acc.clone()
-    if exact:
-        acc[slots] = acc[slots] + p_sum
-        return acc, counts
-    # approx: the last hit with a positive weight wins the race; ``acc``
-    # is the call-entry snapshot
-    live = w > 0
-    last = torch.full(slots.shape, -1, dtype=torch.int64, device=acc.device)
-    at = torch.arange(pos.numel(), device=acc.device)
-    last.scatter_reduce_(0, group[live], at[live], reduce="amax")
-    won = last >= 0
-    lw = last[won]
-    acc[slots[won]] = acc[slots[won]] + w[lw, None] * pkt[lw]
-    return acc, counts
+    return packet_scatter_accum_rounds_plain(
+        idx[None], weights[None], packets[None], acc, counts, exact=exact)
 
 
 def packet_scatter_accum_q8_plain(packets: torch.Tensor, scales: torch.Tensor,
@@ -142,6 +98,8 @@ def load_library() -> _build.KernelLibrary:
     built = _build.load("packet_scatter")
     _build.declare(built.lib, "packet_scatter_accum_f32", 5, 4)
     _build.declare(built.lib, "packet_scatter_accum_q8", 6, 4)
+    _build.declare(built.lib, "packet_scatter_rounds_f32", 9, 5)
+    _build.declare(built.lib, "packet_scatter_rounds_q8", 10, 5)
     return built
 
 
@@ -250,6 +208,87 @@ def packet_scatter_accum_q8(packets: torch.Tensor, scales: torch.Tensor,
 packet_scatter_accum_q8.launches = 0
 
 
+def _group_starts(new: torch.Tensor) -> torch.Tensor:
+    """Rank of each element within its run, given a mask of run starts."""
+    at = torch.arange(new.numel(), device=new.device)
+    return at - torch.cummax(torch.where(new, at, 0), dim=0).values
+
+
+def packet_scatter_accum_rounds_plain(sched_idx: torch.Tensor,
+                                      sched_w: torch.Tensor,
+                                      sched_pk: torch.Tensor,
+                                      acc: torch.Tensor, counts: torch.Tensor,
+                                      *,
+                                      sched_scales: Optional[torch.Tensor] = None,
+                                      exact: bool = True):
+    """A round's drain schedule folded slot-major, in the round kernel's
+    order -> new (acc', counts').  Functional: the inputs are not modified.
+
+    Each hit slot takes its hits in schedule order, row after row: per
+    row the batch sum from 0 in packet order (approx: the row's last hit
+    with a positive weight) and the row's weights from 0, each then added
+    to the slot's running value.  Those are the operations, in the order,
+    of folding the rows one by one with ``packet_scatter_accum_plain``,
+    so the two agree bit for bit on any payload.  The loops run over the
+    most rows (and hits in a row) any one slot has, every slot at once.
+    """
+    S, W = acc.shape
+    B = sched_idx.shape[1]
+    slot = sched_idx.reshape(-1).to(torch.int64)
+    pos = torch.nonzero((slot >= 0) & (slot < S)).flatten()
+    s, perm = torch.sort(slot[pos], stable=True)     # slot-major, in order
+    pos = pos[perm]
+    row = torch.div(pos, B, rounding_mode="floor")
+    w = sched_w.reshape(-1).to(torch.float32)[pos]
+    x = sched_pk.reshape(-1, W)[pos].to(torch.float32)
+    if sched_scales is not None:
+        x = x * sched_scales.reshape(-1).to(torch.float32)[pos, None]
+    new_grp = torch.ones_like(s, dtype=torch.bool)   # (slot, row) groups
+    new_grp[1:] = (s[1:] != s[:-1]) | (row[1:] != row[:-1])
+    grp = torch.cumsum(new_grp, 0) - 1
+    k = _group_starts(new_grp)                       # hit rank in its row
+    g_slot = s[new_grp]
+    new_slot = torch.ones_like(g_slot, dtype=torch.bool)
+    new_slot[1:] = g_slot[1:] != g_slot[:-1]
+    j = _group_starts(new_slot)                      # row rank in its slot
+    g_sid = torch.cumsum(new_slot, 0) - 1
+    slots = g_slot[new_slot]
+    G = g_slot.numel()
+    n_k = int(k.max()) + 1 if k.numel() else 0
+    n_j = int(j.max()) + 1 if j.numel() else 0
+    c_row = torch.zeros(G, dtype=torch.float32, device=acc.device)
+    for kk in range(n_k):               # the kk-th hit of every row group
+        sel = k == kk
+        c_row[grp[sel]] = c_row[grp[sel]] + w[sel]
+    c = counts[slots]
+    for jj in range(n_j):               # the jj-th row of every slot
+        sel = j == jj
+        c[g_sid[sel]] = c[g_sid[sel]] + c_row[sel]
+    v = acc[slots]
+    if exact:
+        bs = torch.zeros((G, W), dtype=torch.float32, device=acc.device)
+        for kk in range(n_k):
+            sel = k == kk
+            bs[grp[sel]] = bs[grp[sel]] + w[sel, None] * x[sel]
+        for jj in range(n_j):
+            sel = j == jj
+            v[g_sid[sel]] = v[g_sid[sel]] + bs[sel]
+    else:
+        # the row's last hit with a positive weight wins its race
+        live = w > 0
+        last = torch.full((G,), -1, dtype=torch.int64, device=acc.device)
+        at = torch.arange(pos.numel(), device=acc.device)
+        last.scatter_reduce_(0, grp[live], at[live], reduce="amax")
+        for jj in range(n_j):
+            sel = (j == jj) & (last >= 0)
+            lw = last[sel]
+            v[g_sid[sel]] = v[g_sid[sel]] + w[lw, None] * x[lw]
+    acc, counts = acc.clone(), counts.clone()
+    acc[slots] = v
+    counts[slots] = c
+    return acc, counts
+
+
 def packet_scatter_accum_rounds(sched_idx: torch.Tensor,
                                 sched_w: torch.Tensor,
                                 sched_pk: torch.Tensor, acc: torch.Tensor,
@@ -261,30 +300,22 @@ def packet_scatter_accum_rounds(sched_idx: torch.Tensor,
     sched_idx/sched_w (R, B) and sched_pk (R, B, W) hold one drained
     ring batch per row (``core/engine_compiled.py``), padded with inert
     ``idx = -1`` / ``weight = 0`` entries; with ``sched_scales`` (R, B)
-    the payloads are the int8 wire rows.  Rows fold in order, one kernel
-    launch each on the current stream with no host sync between them
-    (the reference's ``packet_scatter_accum_scan``).  On CPU tensors
-    each row runs the plain version.
+    the payloads are the int8 wire rows.  The result is the rows folded
+    in order, each by the batch contract (the reference's
+    ``packet_scatter_accum_scan``).  CUDA tensors run the round kernel
+    of ``csrc/packet_scatter.cu``: one memset and four launches on the
+    current stream whatever R is, no host sync, counted once in
+    ``packet_scatter_accum_rounds.launches``; scratch (two (S+1,) and
+    two (R*B,) int32 buffers) comes from ``torch.empty``.  CPU tensors
+    run ``packet_scatter_accum_rounds_plain``.
     """
     _check_accum(acc, counts)
-    R = sched_idx.shape[0]
-    q8 = sched_scales is not None
-    if acc.device.type == "cpu":
-        for r in range(R):
-            if q8:
-                packet_scatter_accum_q8(sched_pk[r], sched_scales[r],
-                                        sched_idx[r], sched_w[r], acc,
-                                        counts, exact=exact)
-            else:
-                packet_scatter_accum(sched_pk[r], sched_idx[r], sched_w[r],
-                                     acc, counts, exact=exact)
-        return acc, counts
     dev = acc.device
-    if sched_idx.dim() != 2:
+    if not isinstance(sched_idx, torch.Tensor) or sched_idx.dim() != 2:
         raise ValueError("sched_idx must be an (R, B) tensor")
-    B = sched_idx.shape[1]
-    W, S = acc.shape[1], acc.shape[0]
-    _check_batch_len(B)
+    R, B = sched_idx.shape
+    S, W = acc.shape
+    q8 = sched_scales is not None
     _build.check_tensor("sched_idx", sched_idx, torch.int32, (R, B), dev)
     _build.check_tensor("sched_w", sched_w, torch.float32, (R, B), dev)
     _build.check_tensor("sched_pk", sched_pk,
@@ -292,21 +323,38 @@ def packet_scatter_accum_rounds(sched_idx: torch.Tensor,
     if q8:
         _build.check_tensor("sched_scales", sched_scales, torch.float32,
                             (R, B), dev)
-    stream = _build.stream(dev)
-    p_idx, p_w, p_pk = (sched_idx.data_ptr(), sched_w.data_ptr(),
-                        sched_pk.data_ptr())
-    p_acc, p_cnt = acc.data_ptr(), counts.data_ptr()
-    row4, pk_row = 4 * B, B * W * sched_pk.element_size()
+    if dev.type == "cpu":
+        a, c = packet_scatter_accum_rounds_plain(
+            sched_idx, sched_w, sched_pk, acc, counts,
+            sched_scales=sched_scales, exact=exact)
+        acc.copy_(a)
+        counts.copy_(c)
+        return acc, counts
+    if R * B == 0 or S == 0:
+        return acc, counts
+    if R * B >= 2 ** 31:
+        raise ValueError(f"a schedule of {R} x {B} entries exceeds int32")
+    i32 = dict(dtype=torch.int32, device=dev)
+    count, offsets = torch.empty(S + 1, **i32), torch.empty(S + 1, **i32)
+    hits, tmp = torch.empty(R * B, **i32), torch.empty(R * B, **i32)
+    lib = load_library()
+    tail = (acc.data_ptr(), counts.data_ptr(), count.data_ptr(),
+            offsets.data_ptr(), hits.data_ptr(), tmp.data_ptr(), R, B, W, S,
+            int(exact), _build.stream(dev))
     if q8:
-        p_sc = sched_scales.data_ptr()
-        for r in range(R):
-            _launch_q8(p_pk + r * pk_row, p_sc + r * row4, p_idx + r * row4,
-                       p_w + r * row4, p_acc, p_cnt, B, W, S, exact, stream)
+        err = lib.lib.packet_scatter_rounds_q8(
+            sched_pk.data_ptr(), sched_scales.data_ptr(),
+            sched_idx.data_ptr(), sched_w.data_ptr(), *tail)
     else:
-        for r in range(R):
-            _launch_f32(p_pk + r * pk_row, p_idx + r * row4, p_w + r * row4,
-                        p_acc, p_cnt, B, W, S, exact, stream)
+        err = lib.lib.packet_scatter_rounds_f32(
+            sched_pk.data_ptr(), sched_idx.data_ptr(), sched_w.data_ptr(),
+            *tail)
+    lib.check(err, "packet_scatter_accum_rounds")
+    packet_scatter_accum_rounds.launches += 1
     return acc, counts
+
+
+packet_scatter_accum_rounds.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -106,25 +106,77 @@ def test_all_padding_batch_is_inert(cuda, q8):
     assert torch.equal(a, acc) and torch.equal(c, cnt)
 
 
-@pytest.mark.parametrize("q8", [False, True], ids=["f32", "q8"])
-def test_rounds_launch_once_per_row_and_match_plain(cuda, q8):
-    rows = [_batch(10 + r, cuda, q8=q8, integer=True) for r in range(6)]
+def _schedule(seed, dev, *, q8, hot):
+    """Gaussian drain schedule: 8 rows of ``_batch`` (duplicates within
+    and across rows, weight-0 arrivals, padding, idx >= S), or with
+    ``hot`` 40 rows in which slot 3 takes 60 positions each (2,400 hits,
+    above the fold's shared-memory sort)."""
+    rows = [_batch(10 + r, dev, q8=q8, integer=False)
+            for r in range(40 if hot else 8)]
     sidx = torch.stack([r[2] for r in rows])
+    if hot:
+        sidx[:, :60] = 3
     sw = torch.stack([r[3] for r in rows])
     spk = torch.stack([r[0] for r in rows])
     ssc = None if not q8 else torch.stack([r[1] for r in rows])
-    acc, cnt = rows[0][4].clone(), rows[0][5].clone()
-    a_ref, c_ref = acc.clone(), cnt.clone()
-    for r in range(6):
-        a_ref, c_ref = _run(spk[r], None if ssc is None else ssc[r],
-                            sidx[r], sw[r], a_ref, c_ref, True, plain=True)
-    counter = ps.packet_scatter_accum_q8 if q8 else ps.packet_scatter_accum
-    before = counter.launches
-    ps.packet_scatter_accum_rounds(sidx, sw, spk, acc, cnt,
-                                   sched_scales=ssc)
+    return sidx, sw, spk, ssc, rows[0][4], rows[0][5]
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "q8"])
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "approx"])
+@pytest.mark.parametrize("hot", [False, True], ids=["mixed", "hot"])
+def test_round_fold_launches_once_and_matches_the_row_by_row_fold(
+        cuda, q8, exact, hot):
+    """One round fold on the counter and none of the per-batch kernel;
+    kernel == plain slot-major == the per-batch kernel run row by row,
+    bit for bit on Gaussian payloads; two runs give the same bits."""
+    sidx, sw, spk, ssc, acc, cnt = _schedule(0, cuda, q8=q8, hot=hot)
+    want = ps.packet_scatter_accum_rounds_plain(sidx, sw, spk, acc, cnt,
+                                                sched_scales=ssc,
+                                                exact=exact)
+    a_row, c_row = acc.clone(), cnt.clone()
+    for r in range(sidx.shape[0]):
+        _run(spk[r], None if ssc is None else ssc[r], sidx[r], sw[r], a_row,
+             c_row, exact, plain=False)
+    counters = (ps.packet_scatter_accum_rounds, ps.packet_scatter_accum,
+                ps.packet_scatter_accum_q8)
+    runs = []
+    for _ in range(2):
+        before = [f.launches for f in counters]
+        a, c = acc.clone(), cnt.clone()
+        out = ps.packet_scatter_accum_rounds(sidx, sw, spk, a, c,
+                                             sched_scales=ssc, exact=exact)
+        assert out[0] is a and out[1] is c
+        assert [f.launches - b for f, b in zip(counters, before)] == [1, 0, 0]
+        runs.append((a, c))
     torch.cuda.synchronize()
-    assert counter.launches == before + 6
-    assert torch.equal(acc, a_ref) and torch.equal(cnt, c_ref)
+    for a, c in runs + [(a_row, c_row)]:
+        assert torch.equal(a, want[0]) and torch.equal(c, want[1])
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "q8"])
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "approx"])
+def test_drain_kernel_matches_plain_at_the_eager_shape(cuda, q8, exact):
+    """The per-drain kernel on one ring of 64 rows at the paper's widths
+    (f32: 12,495 slots x 367; q8: 3,133 x 1,464), Gaussian payloads,
+    a few slots hit twice: bit for bit."""
+    rng = np.random.default_rng(5)
+    n_slots, width = (3133, 1464) if q8 else (12495, 367)
+    idx = rng.choice(n_slots, 64, replace=False).astype(np.int32)
+    idx[1::9] = idx[0::9][:len(idx[1::9])]
+    w = rng.integers(1, 4, 64).astype(np.float32)
+    w[5] = 0.0
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    pk = (t(rng.integers(-127, 128, (64, width)).astype(np.int8)) if q8
+          else t(rng.normal(size=(64, width)).astype(np.float32)))
+    sc = t(rng.uniform(1e-3, 1e-1, 64).astype(np.float32)) if q8 else None
+    acc = t(rng.normal(size=(n_slots, width)).astype(np.float32))
+    cnt = t(rng.integers(0, 3, n_slots).astype(np.float32))
+    want = _run(pk, sc, t(idx), t(w), acc, cnt, exact, plain=True)
+    a, c = acc.clone(), cnt.clone()
+    _run(pk, sc, t(idx), t(w), a, c, exact, plain=False)
+    torch.cuda.synchronize()
+    assert torch.equal(a, want[0]) and torch.equal(c, want[1])
 
 
 def test_wrapper_rejects_mixed_devices_and_dtypes(cuda):
